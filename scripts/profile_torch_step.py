@@ -11,7 +11,13 @@ and measures, with TF32 off:
   2. the 12-view spin step (ITM scoring of the 12 views, fusion into the
      value map, the ring decision): median wall time of 5 after a warm-up,
      whole and its fusion-and-decision half; then one profiled step, with
-     the device's busy time and idle share over the step's wall time.
+     the device's busy time and idle share over the step's wall time;
+  3. one detection pipeline call at B=8 (``chip_smoke.py`` phase 9's
+     configuration: OWL-ViT base-32 with the COCO route and the retry,
+     MobileSAM gated at 2 frames, target "toilet"): the same profiler
+     method over 3 calls after 2 warm-ups, device time per call by ATen op,
+     K1's and K2's launches and device time, and the device's busy time and
+     idle share over one call.
 ``--table`` writes the full per-op and per-kernel tables to PATH. Imports
 only the port, never jax.
 """
@@ -31,9 +37,11 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as S  # noqa: E402
+from vlfm_tpu_torch.ops.conv_fused import mbconv_chain  # noqa: E402
 from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
 
 LN_KERNEL = "layer_norm_kernel<"  # csrc/layer_norm.cu's kernel template
+K2_KERNELS = ("chain_tc<", "chain_simt<")  # csrc/mbconv_chain.cu's two bodies
 
 
 def device_events(prof):
@@ -64,19 +72,6 @@ def op_table(prof, calls: int, top: int) -> list[tuple[str, float, int]]:
         if k.key.startswith("aten::") and k.self_device_time_total > 0
     ]
     return sorted(rows, key=lambda r: -r[1])[:top]
-
-
-def wall_ms(fn, reps: int, warmup: int) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return float(np.median(times))
 
 
 def main() -> None:
@@ -129,8 +124,8 @@ def main() -> None:
         cos = engine.score(rgb12, S.TARGET)
         return S.ring_decision(views, S.fuse_spin(views, cos, spec, cfg), spec)
 
-    map_ms = wall_ms(map_half, reps=5, warmup=1)
-    step_ms = wall_ms(step, reps=5, warmup=1)
+    map_ms = S.wall_ms(map_half, reps=5, warmup=1)
+    step_ms = S.wall_ms(step, reps=5, warmup=1)
     print(
         f"[step] 12-view spin step on {smi}: {step_ms:.2f} ms whole, of which fusion of 12 views "
         f"+ decision {map_ms:.2f} ms (wall, median of 5)"
@@ -148,6 +143,50 @@ def main() -> None:
         f"in {len(dev)} device events, idle share {1 - busy / wall:.3f}"
     )
     tables.append(("spin step, by op", prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)))
+    del engine, itm
+
+    # 3. One detection pipeline call at B=8.
+    det_cfg, det, sam, rgb = S.build_detection_path()
+    pipe = S.make_pipeline(det, sam, det_cfg, det_cfg.sam_frame_capacity)
+    for _ in range(2):
+        out = pipe(rgb, S.COCO_TARGET)
+    torch.cuda.synchronize()
+    passes = -(-int(out[1].any(dim=1).sum()) // det_cfg.sam_frame_capacity)
+    ln0, k20 = layer_norm.launches, mbconv_chain.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            pipe(rgb, S.COCO_TARGET)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    dev = device_events(prof)
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
+    print(
+        f"[det-profile] B={rgb.shape[0]} pipeline call ({S.COCO_TARGET}, {passes} gated SAM passes), {calls} calls "
+        f"on {smi}: {wall:.2f} ms wall and {dev_ms:.2f} ms of device time per call"
+    )
+    for name, ms, n in op_table(prof, calls, top=14):
+        print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
+    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), layer_norm.launches - ln0),
+                                  ("MBConv chain kernel (K2)", K2_KERNELS, mbconv_chain.launches - k20)):
+        ks = [e for e in dev if any(n in e.name for n in names)]
+        ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls
+        print(f"  {label}: {len(ks) // calls} launches per call ({wrapper // calls} by the wrapper's count), "
+              f"{ms:.3f} ms per call")
+    tables.append(("detection pipeline B=8, by op",
+                   prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pipe(rgb, S.COCO_TARGET)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = device_events(prof)
+    busy = busy_ms(dev)
+    print(
+        f"[det-profile] one call under the profiler: {wall:.2f} ms wall, device busy {busy:.2f} ms in "
+        f"{len(dev)} device events, idle share {1 - busy / wall:.3f}"
+    )
 
     if args.table:
         with open(args.table, "w") as f:

@@ -1,11 +1,11 @@
 """vlfm_tpu_torch's host modules against their vlfm_tpu originals, and the
 port's independence from jax and from vlfm_tpu.
 
-The port carries its own ``config``, ``models.tokenizer`` and
-``runner.fake_env``, so that neither the package nor ``chip_smoke.py``
-loads anything of the JAX package. Held here: the same config fields and
-defaults, the same token ids, and bit-identical environment frames along a
-spin and a walk.
+The port carries its own ``config``, ``models.tokenizer``,
+``models.coco_classes`` and ``runner.fake_env``, so that neither the package
+nor ``chip_smoke.py`` loads anything of the JAX package. Held here: the same
+config fields and defaults, the same token ids, the same COCO class table
+and routing, and bit-identical environment frames along a spin and a walk.
 """
 
 import dataclasses
@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from vlfm_tpu import config as JCFG
+from vlfm_tpu.models import coco_classes as JCOCO
 from vlfm_tpu.models import tokenizer as JTOK
 from vlfm_tpu.runner import fake_env as JENV
 from vlfm_tpu_torch import config as CFG
+from vlfm_tpu_torch.models import coco_classes as COCO
 from vlfm_tpu_torch.models import tokenizer as TOK
 from vlfm_tpu_torch.runner import fake_env as ENV
 
@@ -70,6 +72,17 @@ def test_tokenizer_unknown_word_matches_jax():
         assert TOK.WordPieceTokenizer(vocab).encode(text) == JTOK.WordPieceTokenizer(vocab).encode(text)
 
 
+def test_coco_classes_match_jax():
+    assert COCO.COCO_CLASSES == JCOCO.COCO_CLASSES
+    assert len(COCO.COCO_CLASSES) == 80
+
+
+@pytest.mark.parametrize("target", ["toilet", "toilet|bed", "fireplace", "fireplace|couch", "tv|remote"])
+def test_is_coco_target_matches_jax(target):
+    assert COCO.is_coco_target(target) == JCOCO.is_coco_target(target)
+    assert COCO.is_coco_target(target) is (target != "fireplace")
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_fake_env_frames_match_jax(seed):
     """A spin, a walk into the far wall (with collisions) and a stop."""
@@ -91,9 +104,19 @@ def test_fake_env_frames_match_jax(seed):
     assert pairs[-1][0]["done"]
 
 
+PORT_MODULES = [
+    "vlfm_tpu_torch.models.coco_classes", "vlfm_tpu_torch.models.coco_detector",
+    "vlfm_tpu_torch.models.owl_vit", "vlfm_tpu_torch.models.params", "vlfm_tpu_torch.models.sam",
+    "vlfm_tpu_torch.models.tinyvit", "vlfm_tpu_torch.ops.conv_fused",
+    "vlfm_tpu_torch.parallel.detection_pipeline",
+]
+
+
 def test_chip_smoke_and_profile_script_import_nothing_of_jax():
     code = (
-        "import sys\n"
+        "import importlib, sys\n"
+        f"for m in {PORT_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_step\n"

@@ -104,15 +104,20 @@ def test_build_raises_with_nvcc_output(tmp_path, monkeypatch):
 
 
 def test_build_is_keyed_by_source_hash(tmp_path, monkeypatch):
-    # A stand-in nvcc that writes its -o target and logs each call.
+    # A stand-in nvcc that writes its -o target and logs each call's arguments.
     log = tmp_path / "calls"
-    body = f'echo x >> {log}\nwhile [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n'
+    body = f'echo "$@" >> {log}\nwhile [ "$1" != "-o" ]; do shift; done\necho lib > "$2"\n'
     monkeypatch.setattr(B, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(B, "_nvcc", lambda: _fake_nvcc(tmp_path, body))
     lib = B.build()
     assert lib.exists() and lib.parent.name == B._source_hash(B._sources())
     assert B.build() == lib  # unchanged sources: no second compile
-    assert log.read_text().count("x") == 1
-    args = B.NVCC_FLAGS
-    assert "arch=compute_90a,code=sm_90a" in args and "-shared" in args
+    calls = log.read_text().splitlines()
+    sources = B._sources()
+    compiles, links = calls[:len(sources)], calls[len(sources):]
+    assert len(links) == 1 and "-shared" in links[0].split()  # one compile per source, one link
+    for src in sources:
+        assert sum(str(src) in c for c in compiles) == 1
+    assert all("-c" in c.split() and "arch=compute_90a,code=sm_90a" in c for c in compiles)
     assert os.path.basename(str(lib)) == B.LIB_NAME
+    assert not list(lib.parent.glob("*.o"))  # objects are removed after the link

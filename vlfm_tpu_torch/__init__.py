@@ -7,9 +7,11 @@ at first use (``kernels/build.py``). Each kernel's wrapper runs the kernel
 on CUDA tensors and a plain PyTorch version on CPU tensors.
 
 Ported so far: BLIP2-ITM scoring (ViT-g + Q-Former, LayerNorm kernel), the
-value map, waypoint scoring, frontier selection and the greedy controller.
-The package imports neither jax nor ``vlfm_tpu``: the host modules it needs
-(``config``, ``models.tokenizer``, ``runner.fake_env``) are its own copies.
+value map, waypoint scoring, frontier selection and the greedy controller;
+detection with OWL-ViT and the COCO route, segmented by gated MobileSAM
+(TinyViT with the MBConv chain kernel). The package imports neither jax nor
+``vlfm_tpu``: the host modules it needs (``config``, ``models.tokenizer``,
+``models.coco_classes``, ``runner.fake_env``) are its own copies.
 """
 
 __version__ = "0.1.0"

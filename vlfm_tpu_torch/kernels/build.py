@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers),
-so one ``nvcc`` call compiles them all into one shared library in a few
-seconds:
+Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers).
+Each source compiles to an object in its own ``nvcc`` process, all started
+together, and one more ``nvcc`` call links them into one shared library:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o <build>/<hash>/libvlfm_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -c -o <build>/<hash>/<name>.o csrc/<name>.cu
+    nvcc -shared -o <build>/<hash>/libvlfm_kernels.so <build>/<hash>/*.o
 
 The output lands in ``vlfm_tpu_torch/build/<hash>/``, keyed by a hash of
 the sources and the flags, so an edited source rebuilds and an unchanged one
@@ -29,7 +30,7 @@ BUILD_DIR = PACKAGE_DIR / "build"
 LIB_NAME = "libvlfm_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 
@@ -61,6 +62,19 @@ def _source_hash(sources: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of any that fail."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    for cmd, proc in zip(cmds, procs):
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` unless a library for these sources exists."""
     sources = _sources()
@@ -69,15 +83,17 @@ def build() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
+    nvcc, tag = _nvcc(), os.getpid()
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in sources]
+    tmp = out_dir / f"{LIB_NAME}.{tag}.tmp"
+    try:
+        _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)] for s, o in zip(sources, objs)])
+        _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+        os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
-    os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
+        for o in objs:
+            o.unlink(missing_ok=True)
     return lib
 
 
@@ -90,4 +106,8 @@ def load_library() -> ctypes.CDLL:
     lib.vlfm_layer_norm.restype = i
     lib.vlfm_layer_norm_max_d.argtypes = []
     lib.vlfm_layer_norm_max_d.restype = i
+    lib.vlfm_mbconv_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.vlfm_mbconv_chain.restype = i
+    lib.vlfm_mbconv_chain_route.argtypes = [p, p, p, p, i, i, i, i]
+    lib.vlfm_mbconv_chain_route.restype = i
     return lib

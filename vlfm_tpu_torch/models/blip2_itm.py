@@ -15,13 +15,13 @@ parameter tree onto this module mechanically.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Mapping
+from typing import Any, Mapping
 
-import numpy as np
 import torch
 from torch import nn
 
-from vlfm_tpu_torch.models.layers import Dense, FastLayerNorm
+from vlfm_tpu_torch.models.layers import Dense
+from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
 from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig, TextEmbeddings
 from vlfm_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from vlfm_tpu_torch.ops.resize import resize_matmul
@@ -91,67 +91,6 @@ def cosine_from_feats(img: torch.Tensor, txt: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bqe,te->bqt", img, txt).amax(dim=1)
 
 
-@torch.no_grad()
-def _init_random_(module: BLIP2ITMModule, gen: torch.Generator) -> None:
-    """Fill every parameter from ``gen``: lecun-normal Dense/Conv weights and
-    zero biases, unit/zero norms, N(0, 1/hidden) word embeddings, N(0, 0.02)
-    for the learned class/position/query embeddings (the flax initializers'
-    scales)."""
-    seen = set()
-    for mod in module.modules():
-        if isinstance(mod, (nn.Linear, nn.Conv2d)):
-            fan_in = mod.weight[0].numel()
-            mod.weight.normal_(0.0, fan_in**-0.5, generator=gen)
-            mod.bias.zero_()
-        elif isinstance(mod, FastLayerNorm):
-            mod.weight.fill_(1.0)
-            mod.bias.zero_()
-        elif isinstance(mod, nn.Embedding):
-            mod.weight.normal_(0.0, mod.embedding_dim**-0.5, generator=gen)
-        else:
-            continue
-        seen.update(id(p) for p in mod.parameters())
-    for p in module.parameters():
-        if id(p) not in seen:
-            p.normal_(0.0, 0.02, generator=gen)
-
-
-def _to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.array(a)  # a writable, contiguous copy
-    if a.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch twin
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
-
-
-def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
-    for k, v in tree.items():
-        name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            out.update(_flatten(v, name + "."))
-        else:
-            out[name] = v
-    return out
-
-
-def state_dict_from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Rename and re-lay-out a JAX parameter tree (numpy leaves):
-    Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv ``kernel`` HWIO
-    -> ``weight`` OIHW; ``Embed.embedding`` -> ``weight``; norm ``scale`` ->
-    ``weight``. Every other leaf keeps its name and layout."""
-    sd: Dict[str, torch.Tensor] = {}
-    for name, leaf in _flatten(params_np).items():
-        scope, _, leaf_name = name.rpartition(".")
-        t = _to_tensor(leaf)
-        if leaf_name == "kernel":
-            t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)
-            leaf_name = "weight"
-        elif leaf_name in ("embedding", "scale"):
-            leaf_name = "weight"
-        sd[f"{scope}.{leaf_name}" if scope else leaf_name] = t.contiguous()
-    return sd
-
-
 class BLIP2ITM:
     """Scoring entry points around a ``BLIP2ITMModule`` (inference only)."""
 
@@ -171,7 +110,7 @@ class BLIP2ITM:
         there (the same seed gives other numbers than JAX's init)."""
         module = BLIP2ITMModule(cfg, device=device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        _init_random_(module, gen)
+        init_random_(module, gen)
         return cls(cfg, module)
 
     @classmethod

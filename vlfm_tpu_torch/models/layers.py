@@ -7,7 +7,8 @@ so a JAX parameter tree maps onto these modules name for name (see
 
 Compute policy: parameters may be stored f32 or bf16; a ``Dense`` computes
 in the promoted type of its input and weight, as flax's ``nn.Dense`` does.
-LayerNorm statistics are f32 (the CUDA kernel in ``ops/norms.py``); the
+LayerNorm statistics are f32 (the CUDA kernel in ``ops/norms.py``, or the
+plain ``LayerNorm`` where the JAX package uses flax's ``nn.LayerNorm``); the
 attention softmax is f32; GELU is the exact erf form.
 """
 
@@ -25,14 +26,21 @@ from vlfm_tpu_torch.ops.norms import layer_norm
 
 class Dense(nn.Linear):
     """``nn.Linear`` that computes in ``promote_types(input, weight)``, as
-    flax's ``nn.Dense`` promotes a bf16 activation against an f32 kernel."""
+    flax's ``nn.Dense`` promotes a bf16 activation against an f32 kernel.
+    ``bias=False`` is flax's ``use_bias=False``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = torch.promote_types(x.dtype, self.weight.dtype)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-class FastLayerNorm(nn.Module):
+class Norm(nn.Module):
+    """Base of the port's norm layers. Their ``weight`` holds the flax
+    ``scale`` leaf, which ``precision.cast_for_serving`` keeps in f32."""
+
+
+class FastLayerNorm(Norm):
     """Drop-in ``nn.LayerNorm`` over the last axis (same ``weight``/``bias``
     parameters) with f32 statistics, routed through ``ops.norms.layer_norm``:
     the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
@@ -45,6 +53,34 @@ class FastLayerNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight, self.bias, self.eps)
+
+
+class LayerNorm(Norm):
+    """Counterpart of flax's ``nn.LayerNorm`` (plain PyTorch; the JAX package
+    runs no kernel for it): f32 statistics with flax's fast variance
+    E[x^2] - E[x]^2 clipped at 0, and ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in f32. The result takes ``promote_types(x, weight,
+    bias)`` as in flax, so f32 norm parameters lift a bf16 stream to f32;
+    with ``keep_dtype`` it is cast back to x's dtype instead, as when the
+    JAX package casts a block's parameters to the compute dtype
+    (``tinyvit_fast.encode_fused``)."""
+
+    def __init__(self, dim: int, eps: float = 1e-6, *, keep_dtype: bool = False, device=None):
+        super().__init__()
+        self.eps = eps
+        self.keep_dtype = keep_dtype
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.to(torch.float32))
+        y = y + self.bias.to(torch.float32)
+        if self.keep_dtype:
+            return y.to(x.dtype)
+        return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype))
 
 
 class LayerNormF32(nn.Module):

@@ -4,7 +4,8 @@ Counterpart of ``vlfm_tpu/ops/resize.py``: the same numpy-built
 interpolation matrices (half-pixel centres; downscales anti-aliased by
 kernel dilation and renormalised, as ``jax.image.resize``), applied with
 ``torch.einsum`` in f32. BLIP-2 preprocessing uses the cubic (Keys a=-0.5)
-form.
+form; OWL-ViT's and SAM's preprocessing and the mask resize use the linear
+one.
 """
 
 from __future__ import annotations
@@ -68,6 +69,10 @@ def resize_matmul(x: torch.Tensor, h_out: int, w_out: int, method: str = "linear
         C = _matrix(w_in, w_out, method, x.device)
         out = torch.einsum("ow,...hwc->...hoc", C, out.to(torch.float32))
     return out.to(dt)
+
+
+def resize_bilinear(x: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
+    return resize_matmul(x, h_out, w_out, "linear")
 
 
 def resize_bilinear_hw(x: torch.Tensor, h_out: int, w_out: int) -> torch.Tensor:
