@@ -6,35 +6,44 @@ Phases (any failure raises, and the script exits non-zero):
   0. device: require CUDA, print the card, its power limit and versions,
      turn TF32 off;
   1. build the CUDA kernels from ``vlfm_tpu_torch/csrc`` (nvcc, sm_90a);
-  2. LayerNorm kernel against its plain version at the main path's shapes,
-     with CUDA-event timings of both;
-  3. tiny BLIP2-ITM: the same weights on the CPU (plain LayerNorm) and on
-     the card (kernel) give the same cosines;
-  4. main path at full width: BLIP2-ITM (EVA ViT-g/14 + Q-Former, random
-     bf16 weights) scores a 12-view spin of the synthetic environment, the
-     views fuse into the value map, a ring of waypoints is scored and the
-     frontier choice and greedy controller pick an action; the kernel's
-     launches are counted over this run;
-  5. value-map check: injected cosines that favour view 7 must make the
-     policy pick the waypoint at view 7's bearing;
-  6. full-width ITM scoring time per 32-image batch;
-  7. the MBConv chain kernel (K2) against its plain version at the detection
+  2. LayerNorm kernel (K1) against its plain version at the main path's
+     shapes, with CUDA-event timings of both and of ``F.layer_norm``;
+  3. attention kernel (K3) against its plain version: every variant at the
+     ViT-g shape (32, 16, 257, 88) in bf16, the main path's layout (q, k, v
+     as views of the fused qkv projection), the CPU tests' ragged shapes in
+     f32 and a 1024-token case; CUDA-event timings of the kernel, the plain
+     version and ``scaled_dot_product_attention``, and the bound;
+  4. tiny BLIP2-ITM: the same weights on the CPU (plain versions) and on
+     the card (K1, K3) give the same cosines;
+  5. tiny obstacle map: the same spin frames update a small map on the CPU
+     and on the card; the grids agree but for cone-edge flips, and the
+     frontiers agree;
+  6. main path at full width: BLIP2-ITM (EVA ViT-g/14 + Q-Former, random
+     bf16 weights) scores a 12-view spin of the synthetic environment; each
+     view updates the obstacle map (frontiers) and fuses into the value map;
+     the frontiers are scored and the frontier choice and greedy controller
+     pick an action. K1's and K3's launches are counted over this run;
+  7. value-map check: injected cosines that favour view 7 must make the
+     policy pick a frontier inside view 7's field of view;
+  8. timings: full-width ITM scoring per 32-image batch, the spin step
+     whole and its obstacle-map part alone;
+  9. the MBConv chain kernel (K2) against its plain version at the detection
      path's shapes and at the CPU tests' ragged ones, with CUDA-event
      timings of both;
-  8. tiny detection pipeline (OWL-ViT -> COCO route -> gated MobileSAM):
+ 10. tiny detection pipeline (OWL-ViT -> COCO route -> gated MobileSAM):
      the same weights on the CPU (plain versions) and on the card (K1, K2)
      give the same boxes, scores and validity, and masks within a flip
      bound;
-  9. the detection path at full width: OWL-ViT base-32 and MobileSAM
+ 11. the detection path at full width: OWL-ViT base-32 and MobileSAM
      (TinyViT-5M at 1024 px), random bf16 weights, on 8 spin frames, for a
      COCO target (both routes) and a non-COCO target at threshold 0 (every
      frame detects, so gated SAM runs all its passes); K1 and K2 launches
      are counted over this run; gated masks must match ungated ones;
- 10. full-width detection timings: one pipeline call at B=8 and its parts.
+ 12. full-width detection timings: one pipeline call at B=8 and its parts.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
-phases 4, 6 and 10 down by kernel.
+phases 6, 8 and 12 down by kernel.
 """
 
 from __future__ import annotations
@@ -49,9 +58,11 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from vlfm_tpu_torch.config import VLFMConfig
 from vlfm_tpu_torch.kernels.build import load_library
+from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
@@ -61,21 +72,27 @@ from vlfm_tpu_torch.models.precision import cast_for_serving
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
+from vlfm_tpu_torch.ops.attention import attention, attention_ref, attention_tolerance, qkv_views
 from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.policy import acyclic as AC
-from vlfm_tpu_torch.policy.itm import TURN_LEFT, decide, fuse_view
+from vlfm_tpu_torch.policy.itm import TURN_LEFT, decide, fuse_view, update_obstacles
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, two_room_plan
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
 
 DEV = torch.device("cuda", 0)
 TARGET = "chair"
 SPIN_VIEWS = 12
-RING_RADIUS_M = 2.0
 HIGH_VIEW = 7
+# Published peaks of one H100 SXM at its 700 W limit: HBM bytes/s, and dense
+# operations/s by the operands' type (bf16 on the tensor cores, f32 outside
+# them). A kernel's bound is the larger of its
+# bytes over the first and its operations over the second.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # (rows, D, dtype, eps): ViT-g and the Q-Former query branch at B=32 (the
 # timing batch), the ragged widths of the CPU tests, the shapes phase 4
 # gives the kernel (ViT-g and query branch at 12 views, text branch at one
@@ -99,6 +116,30 @@ LN_F32_ATOL = 2e-5  # bf16: ops.norms.bf16_tolerance, one bf16 ulp of plain
 TINY_COS_ATOL = 1e-3
 LAUNCHES_TEXT = 25  # Q-Former text branch: embed_ln + 12 x (self_ln, ffn_text_ln)
 LAUNCHES_IMAGE = 110  # ViT-g 39 x 2 + post_ln, Q-Former 1 + 12 x 2 + 6 cross_ln
+ATTN_LAUNCHES_IMAGE = 39  # K3 once per ViT-g block; the Q-Former keeps plain attention
+ATTN_LAUNCHES_TEXT = 0
+ATTN_SHAPE = (32, 16, 257, 88)  # ViT-g at B=32: batch, heads, tokens, head width
+# (variant, the TPU kernels it stands for, arguments, K stored transposed)
+ATTN_VARIANTS = [
+    ("max/probs", "K3a flash_attention_grouped, K3c flash_attention, diag_attn_core grouped",
+     dict(clamp=None, normalize="probs"), False),
+    ("max/output", "K3b flash_attention_grouped_v2, diag_attn_core grouped norm_after",
+     dict(clamp=None, normalize="output"), False),
+    ("clamp80/output/bf16-logits", "layers.attention_bf16_softmax",
+     dict(clamp=80.0, normalize="output", round_logits=True), False),
+    ("clamp60/output, K transposed", "diag_attn3 attn_kt, diag_attn_core max_free, diag_attn_pure pure_kernel",
+     dict(clamp=60.0, normalize="output"), True),
+    ("clamp60/output/bf16-logits, K transposed", "diag_attn3 attn_phased and attn_kt pexp16",
+     dict(clamp=60.0, normalize="output", round_logits=True), True),
+]
+# The CPU tests' ragged shapes in f32 (two variants each) and 1024 tokens.
+ATTN_RAGGED = [
+    ((2, 2, 64, 32), torch.float32), ((1, 16, 257, 88), torch.float32), ((2, 4, 130, 16), torch.float32),
+    ((2, 4, 1024, 64), torch.bfloat16),
+]
+TINY_MAP = dict(map_size=256, map_pad=64, width=160, height=120, views=6)
+MAP_FLIPS = 1e-3  # cone-edge cells: atan2/cos differ in the last ulp between devices
+FRONTIER_ATOL_M = 0.1  # two cells
 # (shape NHWC, Ch, Cout, residual and final gelu, dtype): the detection
 # path's K2 calls (stage-0 MBConv and the stride-1 merge into stage 3, at
 # B=8 ungated and at one gated pass of 2 frames), then the CPU tests' ragged
@@ -132,7 +173,7 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
-# --- phase 0 ---------------------------------------------------------------
+# --- phase 0 -----------------------------------------------------------------
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py runs only on a GPU")
@@ -152,14 +193,14 @@ def phase_device() -> str:
     return smi
 
 
-# --- phase 1 ---------------------------------------------------------------
+# --- phase 1 -----------------------------------------------------------------
 def phase_build() -> None:
     t0 = time.perf_counter()
     load_library()
     log(f"[build] csrc/*.cu -> sm_90a in {time.perf_counter() - t0:.2f} s")
 
 
-# --- phase 2 ---------------------------------------------------------------
+# --- phase 2 -----------------------------------------------------------------
 def _median_ms(fn, reps: int = 50, warmup: int = 5) -> float:
     """Median device time of one call, from CUDA events around each of
     ``reps`` calls. A spin kernel holds the card first, so the host queues
@@ -193,6 +234,14 @@ def wall_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return float(np.median(times))
 
 
+def bound(n_bytes: float, n_ops: float, dtype: torch.dtype) -> tuple[float, str]:
+    """The least time (ms) the card could take: the larger of the bytes
+    over HBM's rate and the operations over the peak rate for ``dtype``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def phase_layer_norm() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows_out = []
@@ -215,16 +264,79 @@ def phase_layer_norm() -> dict:
             tol = f"each <= 1 bf16 ulp of plain, floor 1e-6 (max {ratio:.2f} of that)"
         ms = _median_ms(lambda: layer_norm(x, scale, bias, eps))
         plain_ms = _median_ms(lambda: layer_norm_ref(x, scale, bias, eps))
+        sc, bi = scale.to(dt), bias.to(dt)
+        library_ms = _median_ms(lambda: F.layer_norm(x, (d,), sc, bi, eps))
+        # x read once and y written once, plus the f32 scale and bias; about
+        # 9 f32 operations per element (two sums, centre, square, scale, shift)
+        bound_ms, bound_by = bound(2 * x.numel() * x.element_size() + 8 * d, 9 * x.numel(), torch.float32)
         log(
             f"[layer_norm] {rows}x{d} {str(dt).split('.')[-1]} eps={eps:g}: max_abs_err={max_abs:.3e} "
-            f"{tol} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"{tol} {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"F.layer_norm {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
         )
         check(ok, f"layer_norm {rows}x{d} {dt} disagrees with its plain version")
-        rows_out.append(dict(shape=(rows, d), max_abs_err=max_abs, ms=ms, plain_ms=plain_ms))
+        rows_out.append(dict(shape=(rows, d), max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows_out[0]  # the ViT-g serving shape stands for the kernel
 
 
-# --- phase 3 ---------------------------------------------------------------
+# --- phase 3 -----------------------------------------------------------------
+def attention_inputs(shape, dtype, gen, layout: str = ""):
+    """Seeded q, k, v on the card. ``layout``: "" contiguous (B, H, L, D);
+    "kt" K stored as (B, H, D, L); "qkv" views of one fused (B, L, 3HD)
+    projection, as the ViT passes them."""
+    b, h, l, d = shape
+    if layout == "qkv":
+        return qkv_views(torch.randn(b, l, 3 * h * d, generator=gen, device=DEV).to(dtype), h)
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device=DEV).to(dtype) for _ in range(3))
+    if layout == "kt":
+        k = k.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return q, k, v
+
+
+def attention_bound(shape, dtype) -> tuple[float, str]:
+    """q, k and v read once and o written once; 2 L^2 D operations for each
+    of the two products, per head."""
+    b, h, l, d = shape
+    return bound(4 * b * h * l * d * torch.finfo(dtype).bits // 8, 4 * b * h * l * l * d, dtype)
+
+
+def phase_attention() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    cases = [("max/probs, qkv views (the main path)", ATTN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2], "qkv")]
+    cases += [(name, ATTN_SHAPE, torch.bfloat16, kw, "kt" if kt else "") for name, _, kw, kt in ATTN_VARIANTS]
+    for shape, dt in ATTN_RAGGED:
+        variants = ATTN_VARIANTS[:1] if dt == torch.bfloat16 else (ATTN_VARIANTS[0], ATTN_VARIANTS[3])
+        cases += [(name, shape, dt, kw, "kt" if kt else "") for name, _, kw, kt in variants]
+    rows_out = []
+    for name, shape, dt, kw, layout in cases:
+        q, k, v = attention_inputs(shape, dt, gen, layout)
+        got = attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        want = attention_ref(q, k, v, **kw)
+        check(got.shape == want.shape and got.dtype == want.dtype, f"K3 {name} {shape} shape/dtype")
+        err = (got.float() - want.float()).abs()
+        ratio = float((err / attention_tolerance(want, kw.get("round_logits", False))).max())
+        max_abs = float(err.max())
+        ms = _median_ms(lambda: attention(q, k, v, **kw))
+        plain_ms = _median_ms(lambda: attention_ref(q, k, v, **kw))
+        library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
+        bound_ms, bound_by = attention_bound(shape, dt)
+        tol = "2e-5" if dt == torch.float32 else "2e-2" if kw.get("round_logits") else "2 bf16 ulps of plain, floor 4e-3"
+        log(
+            f"[attention] {shape} {str(dt).split('.')[-1]} {name}: max_abs_err={max_abs:.3e}, {ratio:.2f} of "
+            f"the tolerance ({tol}) "
+            f"{'ok' if ratio <= 1 else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+        )
+        check(ratio <= 1.0, f"attention {name} {shape} {dt} disagrees with its plain version")
+        rows_out.append(dict(name=name, shape=shape, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+        del q, k, v, got, want, err
+    return rows_out[0]  # the main path's layout and variant at the ViT-g shape stands for the kernel
+
+
+# --- phase 4 -----------------------------------------------------------------
 def phase_tiny_model() -> None:
     cfg = dataclasses.replace(BLIP2ITMConfig.tiny(), compute_dtype=torch.float32)
     itm_cpu = BLIP2ITM.init_random(cfg, seed=0, device="cpu")
@@ -234,104 +346,163 @@ def phase_tiny_model() -> None:
     tok = WordPieceTokenizer(toy_vocab(), max_len=16)
     ids, mask = tok.encode_batch(["a red chair", "a bed"])
     want = itm_cpu.cosine(imgs, ids, mask)
-    before = layer_norm.launches
+    ln0, k30 = layer_norm.launches, attention.launches
     got = itm_gpu.cosine(imgs.to(DEV), ids.to(DEV), mask.to(DEV)).cpu()
     err = float((got - want).abs().max())
     log(
         f"[tiny] cosines gpu vs cpu: max_abs_err={err:.3e} (tol {TINY_COS_ATOL}), "
-        f"{layer_norm.launches - before} kernel launches"
+        f"K1 {layer_norm.launches - ln0}, K3 {attention.launches - k30} launches"
     )
     check(err <= TINY_COS_ATOL, "tiny BLIP2-ITM cosines differ between card and CPU")
-    check(layer_norm.launches > before, "tiny model on the card did not launch the kernel")
+    check(layer_norm.launches > ln0, "tiny model on the card did not launch K1")
+    check(attention.launches - k30 == cfg.vit.depth, "tiny model on the card: one K3 launch per ViT block")
 
 
-# --- phase 4 ---------------------------------------------------------------
-def spin_views(n: int) -> list[dict]:
-    env = FakeObjectNavEnv(two_room_plan(seed=0), EnvConfig(width=640, height=480))
+# --- phase 5 -----------------------------------------------------------------
+def spin_views(n: int, width: int = 640, height: int = 480) -> list[dict]:
+    env = FakeObjectNavEnv(two_room_plan(seed=0), EnvConfig(width=width, height=height))
     views = [env.reset()]
     views += [env.step(TURN_LEFT) for _ in range(n - 1)]
     return views
 
 
-def fuse_spin(views, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig) -> VM.ValueMapState:
-    state = VM.create(spec, cfg.value_channels, device=DEV)
-    cam_h = cfg.camera.camera_height
-    for o, cos in zip(views, cosines.to(DEV)):
-        xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cam_h], dtype=torch.float32, device=DEV)
-        tf = xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32, device=DEV))
-        depth = torch.from_numpy(o["depth"].astype(np.float32)).to(DEV)
-        fuse_view(state, spec, cfg, cos, depth, tf)
+def view_inputs(views, cfg: VLFMConfig, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """(camera-to-episodic transform, normalized depth) of each view."""
+    out = []
+    for o in views:
+        xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cfg.camera.camera_height],
+                           dtype=torch.float32, device=device)
+        tf = xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32, device=device))
+        out.append((tf, torch.from_numpy(o["depth"].astype(np.float32)).to(device)))
+    return out
+
+
+def spin_obstacles(inputs, spec: GridSpec2D, cfg: VLFMConfig, device) -> OM.ObstacleMapState:
+    """The obstacle-map half of the spin: one update per view."""
+    state = OM.create(spec, cfg.max_frontiers, device=device)
+    for steps, (tf, depth) in enumerate(inputs):
+        state = update_obstacles(state, spec, cfg, depth, tf, steps)
     return state
 
 
-def ring_decision(views, state: VM.ValueMapState, spec: GridSpec2D):
-    """Score a ring of waypoints at the view bearings and choose one."""
+def spin_maps(inputs, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig):
+    """Per view, the obstacle-map update and the value-map fusion, as the
+    policy step runs them (vlfm_tpu/policy/itm.py:124-156)."""
+    obstacle = OM.create(spec, cfg.max_frontiers, device=DEV)
+    value = VM.create(spec, cfg.value_channels, device=DEV)
+    for steps, ((tf, depth), cos) in enumerate(zip(inputs, cosines.to(DEV))):
+        obstacle = update_obstacles(obstacle, spec, cfg, depth, tf, steps)
+        fuse_view(value, spec, cfg, cos, depth, tf)
+    return obstacle, value
+
+
+def spin_decision(views, obstacle: OM.ObstacleMapState, value: VM.ValueMapState, spec: GridSpec2D):
+    """Score the obstacle map's frontiers on the value map and choose one."""
     last = views[-1]
-    robot_xy = torch.from_numpy(last["robot_xy"]).to(DEV)
-    bearings = torch.tensor([o["heading"] for o in views], dtype=torch.float32, device=DEV)
-    ring = robot_xy + RING_RADIUS_M * torch.stack([torch.cos(bearings), torch.sin(bearings)], 1)
-    valid = torch.ones(len(views), dtype=torch.bool, device=DEV)
-    dec = decide(
-        state, spec, ring, valid, robot_xy,
+    return decide(
+        value, spec, obstacle,
+        torch.tensor(last["robot_xy"], dtype=torch.float32, device=DEV),
         torch.tensor(last["heading"], dtype=torch.float32, device=DEV),
         torch.zeros(2, device=DEV), torch.tensor(-math.inf, device=DEV),
         AC.create(device=DEV),
     )
-    chosen = int(torch.argmin(torch.linalg.vector_norm(ring - dec.choice.frontier, dim=1)))
-    return dec, chosen
 
 
+def phase_tiny_obstacle_map() -> None:
+    t = TINY_MAP
+    cfg = dataclasses.replace(VLFMConfig(), map_size=t["map_size"], map_pad=t["map_pad"],
+                              camera=dataclasses.replace(VLFMConfig().camera, width=t["width"], height=t["height"]))
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    views = spin_views(t["views"], t["width"], t["height"])
+    want = spin_obstacles(view_inputs(views, cfg, "cpu"), spec, cfg, "cpu")
+    got = spin_obstacles(view_inputs(views, cfg, DEV), spec, cfg, DEV)
+    torch.cuda.synchronize()
+    cells = t["views"] * 224 * 224  # the fog-of-war windows the spin updated
+    flips = {n: int((getattr(got, n).cpu() != getattr(want, n)).sum()) for n in ("obstacles", "navigable", "explored")}
+    valid_eq = torch.equal(got.frontiers_valid.cpu(), want.frontiers_valid)
+    fr_err = float((got.frontiers_xy.cpu() - want.frontiers_xy).abs().max())
+    log(
+        f"[tiny-map] {t['map_size']}+2x{t['map_pad']} px map, {t['views']} views at {t['width']}x{t['height']}: "
+        f"card vs CPU flips {flips} (tol {MAP_FLIPS} of {cells} cells), {int(want.frontiers_valid.sum())} "
+        f"frontiers, validity equal {valid_eq}, max position error {fr_err:.3e} m (tol {FRONTIER_ATOL_M})"
+    )
+    check(all(f <= MAP_FLIPS * cells for f in flips.values()), "tiny obstacle map differs between card and CPU")
+    check(valid_eq and fr_err <= FRONTIER_ATOL_M, "tiny obstacle map frontiers differ between card and CPU")
+    check(bool(want.frontiers_valid.any()), "tiny obstacle map found no frontier")
+
+
+# --- phase 6 -----------------------------------------------------------------
 def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
+    inputs = view_inputs(views, cfg, DEV)
     layer_norm.launches = 0
+    attention.launches = 0
     t0 = time.perf_counter()
     engine.text_features(TARGET)
     torch.cuda.synchronize()
-    text_launches = layer_norm.launches
+    text = dict(layer_norm=layer_norm.launches, attention=attention.launches)
     cosines = engine.score(rgb, TARGET)
     torch.cuda.synchronize()
-    image_launches = layer_norm.launches - text_launches
-    state = fuse_spin(views, cosines, spec, cfg)
-    dec, chosen = ring_decision(views, state, spec)
+    image = dict(layer_norm=layer_norm.launches - text["layer_norm"], attention=attention.launches - text["attention"])
+    obstacle, value = spin_maps(inputs, cosines, spec, cfg)
+    dec = spin_decision(views, obstacle, value, spec)
     action = int(dec.action)
     wall = time.perf_counter() - t0
-    launches = layer_norm.launches
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
     log(
-        f"[main] K1 launches: encode_texts {text_launches} (expect {LAUNCHES_TEXT}), "
-        f"cosine_cached_text {image_launches} (expect {LAUNCHES_IMAGE})"
+        f"[main] K1 launches: encode_texts {text['layer_norm']} (expect {LAUNCHES_TEXT}), "
+        f"cosine_cached_text {image['layer_norm']} (expect {LAUNCHES_IMAGE}); K3 launches: encode_texts "
+        f"{text['attention']} (expect {ATTN_LAUNCHES_TEXT}), cosine_cached_text {image['attention']} "
+        f"(expect {ATTN_LAUNCHES_IMAGE})"
     )
-    check(text_launches == LAUNCHES_TEXT, "encode_texts K1 launch count")
-    check(image_launches == LAUNCHES_IMAGE, "cosine_cached_text K1 launch count")
+    check(text["layer_norm"] == LAUNCHES_TEXT, "encode_texts K1 launch count")
+    check(image["layer_norm"] == LAUNCHES_IMAGE, "cosine_cached_text K1 launch count")
+    check(text["attention"] == ATTN_LAUNCHES_TEXT, "encode_texts K3 launch count")
+    check(image["attention"] == ATTN_LAUNCHES_IMAGE, "cosine_cached_text K3 launch count")
 
     c = cosines.float().cpu()
     log(f"[main] cosines {tuple(c.shape)}: {[round(v, 5) for v in c[:, 0].tolist()]}")
     check(c.shape == (len(views), cfg.value_channels), "cosine shape")
     check(bool(torch.isfinite(c).all()), "cosines finite")
-    check(bool(torch.isfinite(state.values).all() and torch.isfinite(state.conf).all()), "map finite")
+    check(bool(torch.isfinite(value.values).all() and torch.isfinite(value.conf).all()), "value map finite")
+    valid = obstacle.frontiers_valid.cpu()
+    fxy = obstacle.frontiers_xy.cpu()[valid]
     log(
-        f"[main] chose waypoint {chosen} (bearing {math.degrees(views[chosen]['heading']):.1f} deg), "
-        f"value {float(dec.choice.value):.5f}, rho {float(dec.rho):.3f} theta {float(dec.theta):.3f}, "
+        f"[main] obstacle map: {int(obstacle.obstacles.sum())} obstacle cells, {int(obstacle.explored.sum())} "
+        f"explored, {int(valid.sum())} frontiers {[tuple(round(v, 2) for v in xy) for xy in fxy.tolist()]}, "
+        f"overflow {bool(obstacle.frontier_overflow)}"
+    )
+    check(bool(valid.any()), "the obstacle map has no valid frontier")
+    log(
+        f"[main] chose frontier {[round(v, 3) for v in dec.choice.frontier.tolist()]}, value "
+        f"{float(dec.choice.value):.5f}, rho {float(dec.rho):.3f} theta {float(dec.theta):.3f}, "
         f"action {action}; wall {wall:.2f} s incl. first calls"
     )
     check(action in (0, 1, 2, 3), "action is a habitat action")
-    check(bool(torch.isfinite(dec.waypoint_values).all()), "waypoint values finite")
-    return dict(launches=launches)
+    check(bool(dec.choice.any_valid), "the decision found no frontier")
+    check(all(bool(torch.isfinite(t).all()) for t in (dec.choice.frontier, dec.choice.value, dec.rho, dec.theta)),
+          "decision finite")
+    check(bool(torch.isfinite(dec.waypoint_values[valid.to(DEV)]).all()), "frontier values finite")
+    return launches
 
 
-# --- phase 5 ---------------------------------------------------------------
+# --- phase 7 -----------------------------------------------------------------
 def phase_value_map_check(views, spec, cfg) -> None:
     cos = torch.full((len(views), cfg.value_channels), 0.1)
     cos[HIGH_VIEW] = 0.9
-    state = fuse_spin(views, cos, spec, cfg)
-    dec, chosen = ring_decision(views, state, spec)
+    obstacle, value = spin_maps(view_inputs(views, cfg, DEV), cos, spec, cfg)
+    dec = spin_decision(views, obstacle, value, spec)
+    robot = views[-1]["robot_xy"]
+    fx, fy = dec.choice.frontier.tolist()
+    off = math.remainder(math.atan2(fy - robot[1], fx - robot[0]) - views[HIGH_VIEW]["heading"], 2 * math.pi)
     log(
-        f"[value-map] injected high cosine at view {HIGH_VIEW}: chose waypoint {chosen} "
-        f"value {float(dec.choice.value):.4f}"
+        f"[value-map] injected high cosine at view {HIGH_VIEW}: chose frontier ({fx:.2f}, {fy:.2f}) at "
+        f"{math.degrees(off):.1f} deg from that view's heading, value {float(dec.choice.value):.4f}"
     )
-    check(chosen == HIGH_VIEW, "the high-value view's waypoint was not chosen")
+    check(abs(off) <= cfg.camera.hfov / 2, "the chosen frontier is not in the high-value view's field of view")
 
 
-# --- phase 6 ---------------------------------------------------------------
+# --- phase 8 -----------------------------------------------------------------
 def itm_batch_ms(views, engine: PerceptionEngine, batch: int = 32) -> float:
     """Median wall time of one full-width ITM scoring call on ``batch``
     preprocessed spin frames, each call ending in a device synchronise."""
@@ -342,15 +513,36 @@ def itm_batch_ms(views, engine: PerceptionEngine, batch: int = 32) -> float:
     return wall_ms(lambda: itm.cosine_cached_text(imgs, feats), reps=10, warmup=3)
 
 
-def phase_timing(views, engine: PerceptionEngine, smi: str) -> None:
+def spin_step_fns(views, engine: PerceptionEngine, spec, cfg):
+    """The 12-view spin step whole (ITM scoring, both maps per view, the
+    decision) and its obstacle-map part alone, on frames already on the
+    card."""
+    rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
+    inputs = view_inputs(views, cfg, DEV)
+
+    def step():
+        obstacle, value = spin_maps(inputs, engine.score(rgb, TARGET), spec, cfg)
+        return spin_decision(views, obstacle, value, spec)
+
+    return step, lambda: spin_obstacles(inputs, spec, cfg, DEV)
+
+
+def phase_timing(views, engine: PerceptionEngine, spec, cfg, smi: str) -> None:
     ms = itm_batch_ms(views, engine)
     log(
         f"[itm] full-width BLIP2-ITM B=32: {ms:.2f} ms/batch median of 10 "
         f"({32 / ms * 1e3:.1f} images/s) on {smi}"
     )
+    step, obstacles = spin_step_fns(views, engine, spec, cfg)
+    step_ms = wall_ms(step, reps=5, warmup=1)
+    om_ms = wall_ms(obstacles, reps=5, warmup=1)
+    log(
+        f"[step] 12-view spin step: {step_ms:.2f} ms whole, of which the 12 obstacle-map updates "
+        f"{om_ms:.2f} ms (wall, median of 5) on {smi}"
+    )
 
 
-# --- phase 7 ---------------------------------------------------------------
+# --- phase 9 -----------------------------------------------------------------
 def chain_inputs(shape, ch, cout, dtype, gen):
     """x and lecun-scaled chain weights in the JAX layouts, biases f32."""
     cin = shape[-1]
@@ -378,20 +570,27 @@ def phase_mbconv_chain() -> dict:
         max_abs = float(err.max())
         ms = _median_ms(lambda: mbconv_chain(x, *w, residual=res, final_gelu=res))
         plain_ms = _median_ms(lambda: mbconv_chain_ref(x, *w, residual=res, final_gelu=res))
+        # x read and y written once (the weights are small); the two 1x1
+        # products and the 3x3 depthwise taps, 2 operations per multiply-add
+        pixels = x.numel() // x.shape[-1]
+        n_bytes = (x.numel() + pixels * cout) * x.element_size() + sum(t.numel() * t.element_size() for t in w)
+        bound_ms, bound_by = bound(n_bytes, 2 * pixels * (shape[-1] * ch + 9 * ch + ch * cout), dt)
         tol = "1e-5 relative" if dt == torch.float32 else "2 bf16 ulps of plain, floor 4e-3"
         log(
             f"[mbconv_chain] {shape}->{ch}->{cout} {str(dt).split('.')[-1]} res={res} "
             f"({kernel_route(x, w[0], w[4], got)}): max_abs_err={max_abs:.3e}, {ratio:.2f} of the "
             f"tolerance ({tol}), {float((err > 0).float().mean()):.2e} of elements differ "
-            f"{'ok' if ratio <= 1 else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            f"{'ok' if ratio <= 1 else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes the chain"
         )
         check(ratio <= 1.0, f"mbconv_chain {shape} {dt} disagrees with its plain version")
-        rows_out.append(dict(shape=shape, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms))
+        rows_out.append(dict(shape=shape, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
         del x, w, got, want, err
     return rows_out[0]  # stage 0 at B=8 stands for the kernel
 
 
-# --- phase 8 ---------------------------------------------------------------
+# --- phase 10 ----------------------------------------------------------------
 def encode_queries(names):
     """Prompt ids for OWL-ViT: the toy WordPiece vocabulary, 8 tokens."""
     return WordPieceTokenizer(toy_vocab(), max_len=8).encode_batch(list(names))
@@ -436,7 +635,7 @@ def phase_tiny_pipeline() -> None:
             check(mbconv_chain.launches > k20, "tiny pipeline on the card did not launch K2")
 
 
-# --- phase 9 ---------------------------------------------------------------
+# --- phase 11 ----------------------------------------------------------------
 def build_detection_path():
     """The full-width detection configuration: OWL-ViT base-32 and MobileSAM
     with random bf16 weights (f32 norms), the VLFMConfig thresholds, SAM
@@ -507,7 +706,7 @@ def phase_detection_path(cfg, det, sam, rgb) -> dict:
     return launches
 
 
-# --- phase 10 --------------------------------------------------------------
+# --- phase 12 ----------------------------------------------------------------
 def phase_detection_timing(cfg, det, sam, rgb, smi: str) -> None:
     pipe = make_pipeline(det, sam, cfg, cfg.sam_frame_capacity)
     s = sam.cfg.vision.image_size
@@ -532,7 +731,7 @@ def phase_detection_timing(cfg, det, sam, rgb, smi: str) -> None:
 
 
 def build_main_path():
-    """The full-width configuration of phase 4: policy config, map grid,
+    """The full-width configuration of phase 6: policy config, map grid,
     the perception engine with random bf16 weights, and the spin's views."""
     cfg = VLFMConfig()
     spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
@@ -542,11 +741,27 @@ def build_main_path():
     return cfg, spec, engine, spin_views(SPIN_VIEWS)
 
 
+def kernel_record(name: str, replaces: str, launches_by_path: dict, timed: dict) -> dict:
+    """One kernel's entry of the JSON line: its launches on each path's run
+    (counts set to 0 just before the run), and the numbers of its timed case."""
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"vlfm_tpu_torch/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        **{k: timed[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    }
+
+
 def main() -> None:
     smi = phase_device()
     phase_build()
     ln = phase_layer_norm()
+    k3 = phase_attention()
     phase_tiny_model()
+    phase_tiny_obstacle_map()
 
     cfg, spec, engine, views = build_main_path()
     n_params = sum(p.numel() for p in engine.itm.module.parameters())
@@ -554,7 +769,7 @@ def main() -> None:
 
     main_run = phase_main_path(views, engine, spec, cfg)
     phase_value_map_check(views, spec, cfg)
-    phase_timing(views, engine, smi)
+    phase_timing(views, engine, spec, cfg, smi)
     del engine
 
     k2 = phase_mbconv_chain()
@@ -566,32 +781,17 @@ def main() -> None:
     det_run = phase_detection_path(det_cfg, det, sam, rgb)
     phase_detection_timing(det_cfg, det, sam, rgb, smi)
 
-    check(main_run["launches"] > 0, "the ITM path launched no layer_norm kernel")
+    check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
+    check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
     check(det_run["layer_norm"] > 0, "the detection path launched no layer_norm kernel")
     check(det_run["mbconv_chain"] > 0, "the detection path launched no mbconv_chain kernel")
     record = {
         "kernels": [
-            {
-                "name": "layer_norm",
-                "route": "cuda",
-                "source": "vlfm_tpu_torch/csrc/layer_norm.cu",
-                "replaces": "vlfm_tpu/ops/norms.py:41",
-                "launches": det_run["layer_norm"],
-                "launches_by_path": {"itm_spin": main_run["launches"], "detection": det_run["layer_norm"]},
-                "max_abs_err": ln["max_abs_err"],
-                "ms": ln["ms"],
-                "plain_ms": ln["plain_ms"],
-            },
-            {
-                "name": "mbconv_chain",
-                "route": "cuda",
-                "source": "vlfm_tpu_torch/csrc/mbconv_chain.cu",
-                "replaces": "vlfm_tpu/ops/conv_fused.py:136",
-                "launches": det_run["mbconv_chain"],
-                "max_abs_err": k2["max_abs_err"],
-                "ms": k2["ms"],
-                "plain_ms": k2["plain_ms"],
-            },
+            kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
+                          {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"]}, ln),
+            kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
+                          {"detection": det_run["mbconv_chain"]}, k2),
+            kernel_record("attention", "vlfm_tpu/ops/attention.py:55", {"itm_spin": main_run["attention"]}, k3),
         ]
     }
     print(json.dumps(record), flush=True)

@@ -2,17 +2,20 @@
 
     python3 scripts/profile_torch_step.py [--table PATH]
 
-Builds the configuration of ``chip_smoke.py`` phase 4 (full-width
-BLIP2-ITM with random bf16 weights, the default value map, the 12-view spin)
-and measures, with TF32 off:
+Builds the configuration of ``chip_smoke.py`` phase 6 (full-width
+BLIP2-ITM with random bf16 weights, the default maps, the 12-view spin) and
+measures, with TF32 off:
   1. full-width ITM scoring at B=32: ``torch.profiler`` (CPU and CUDA
      activities) over 3 calls after 3 warm-ups; device time per call by
-     ATen op, and the LayerNorm kernel's launches and device time;
-  2. the 12-view spin step (ITM scoring of the 12 views, fusion into the
-     value map, the ring decision): median wall time of 5 after a warm-up,
-     whole and its fusion-and-decision half; then one profiled step, with
-     the device's busy time and idle share over the step's wall time;
-  3. one detection pipeline call at B=8 (``chip_smoke.py`` phase 9's
+     ATen op, and the LayerNorm (K1) and attention (K3) kernels' launches
+     and device time;
+  2. the 12-view spin step (ITM scoring of the 12 views, per view the
+     obstacle-map update and the value-map fusion, then the decision over
+     the frontiers): median wall time of 5 after a warm-up, whole and by
+     part (ITM, value map, obstacle map, decision); then one profiled step,
+     with the device's busy time and idle share over the step's wall time,
+     and device time by ATen op;
+  3. one detection pipeline call at B=8 (``chip_smoke.py`` phase 11's
      configuration: OWL-ViT base-32 with the COCO route and the retry,
      MobileSAM gated at 2 frames, target "toilet"): the same profiler
      method over 3 calls after 2 warm-ups, device time per call by ATen op,
@@ -37,10 +40,13 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as S  # noqa: E402
+from vlfm_tpu_torch.ops.attention import attention  # noqa: E402
 from vlfm_tpu_torch.ops.conv_fused import mbconv_chain  # noqa: E402
 from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
+from vlfm_tpu_torch.policy.itm import fuse_view  # noqa: E402
 
 LN_KERNEL = "layer_norm_kernel<"  # csrc/layer_norm.cu's kernel template
+K3_KERNEL = "attention_kernel<"  # csrc/attention.cu's kernel template
 K2_KERNELS = ("chain_tc<", "chain_simt<")  # csrc/mbconv_chain.cu's two bodies
 
 
@@ -93,43 +99,47 @@ def main() -> None:
     for _ in range(3):
         itm.cosine_cached_text(imgs, feats)
     torch.cuda.synchronize()
-    before = layer_norm.launches
+    ln0, k30 = layer_norm.launches, attention.launches
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             itm.cosine_cached_text(imgs, feats)
         torch.cuda.synchronize()
-    wrapper_launches = (layer_norm.launches - before) // calls
     dev = device_events(prof)
-    ln = [e for e in dev if LN_KERNEL in e.name]
-    ln_ms = sum(e.time_range.elapsed_us() for e in ln) / 1e3 / calls
     dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
     print(f"[itm-profile] B=32, {calls} calls on {smi}: {dev_ms:.2f} ms of device time per call")
     for name, ms, n in op_table(prof, calls, top=12):
         print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
-    print(
-        f"  LayerNorm kernel: {len(ln) // calls} launches per call ({wrapper_launches} by the "
-        f"wrapper's count), {ln_ms:.3f} ms per call, {ln_ms / max(len(ln) // calls, 1) * 1e3:.2f} us "
-        f"per launch on average"
-    )
+    for label, kernel, wrapper in (("LayerNorm kernel (K1)", LN_KERNEL, layer_norm.launches - ln0),
+                                   ("attention kernel (K3)", K3_KERNEL, attention.launches - k30)):
+        ks = [e for e in dev if kernel in e.name]
+        ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls
+        n = len(ks) // calls
+        print(f"  {label}: {n} launches per call ({wrapper // calls} by the wrapper's count), "
+              f"{ms:.3f} ms per call, {ms / max(n, 1) * 1e3:.2f} us per launch on average")
     tables.append(("ITM B=32, by op", prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)))
 
-    # 2. The 12-view spin step.
+    # 2. The 12-view spin step, whole and by part.
     rgb12 = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(S.DEV)
+    inputs = S.view_inputs(views, cfg, S.DEV)
     cos12 = engine.score(rgb12, S.TARGET)
+    obstacle, value = S.spin_maps(inputs, cos12, spec, cfg)
 
-    def map_half():
-        return S.ring_decision(views, S.fuse_spin(views, cos12, spec, cfg), spec)
+    def value_part():
+        state = S.VM.create(spec, cfg.value_channels, device=S.DEV)
+        for (tf, depth), cos in zip(inputs, cos12):
+            fuse_view(state, spec, cfg, cos, depth, tf)
 
-    def step():
-        cos = engine.score(rgb12, S.TARGET)
-        return S.ring_decision(views, S.fuse_spin(views, cos, spec, cfg), spec)
-
-    map_ms = S.wall_ms(map_half, reps=5, warmup=1)
+    step, obstacle_part = S.spin_step_fns(views, engine, spec, cfg)
+    parts = {
+        "ITM scoring of 12 views": lambda: engine.score(rgb12, S.TARGET),
+        "value map, 12 fusions": value_part,
+        "obstacle map, 12 updates": obstacle_part,
+        "decision over the frontiers": lambda: S.spin_decision(views, obstacle, value, spec),
+    }
     step_ms = S.wall_ms(step, reps=5, warmup=1)
-    print(
-        f"[step] 12-view spin step on {smi}: {step_ms:.2f} ms whole, of which fusion of 12 views "
-        f"+ decision {map_ms:.2f} ms (wall, median of 5)"
-    )
+    print(f"[step] 12-view spin step on {smi}: {step_ms:.2f} ms whole (wall, median of 5); by part:")
+    for name, fn in parts.items():
+        print(f"  {name:30s} {S.wall_ms(fn, reps=5, warmup=1):8.2f} ms")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -142,6 +152,8 @@ def main() -> None:
         f"[step-profile] one step under the profiler: {wall:.2f} ms wall, device busy {busy:.2f} ms "
         f"in {len(dev)} device events, idle share {1 - busy / wall:.3f}"
     )
+    for name, ms, n in op_table(prof, 1, top=10):
+        print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches")
     tables.append(("spin step, by op", prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)))
     del engine, itm
 

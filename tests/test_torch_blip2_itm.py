@@ -47,7 +47,7 @@ def pair():
     jitm = JB.BLIP2ITM(jcfg, params)
     params_np = jax.tree_util.tree_map(np.asarray, jitm.params)
     tcfg = dataclasses.replace(B.BLIP2ITMConfig.tiny(), compute_dtype=torch.float32)
-    return jitm, B.BLIP2ITM.from_jax_params(tcfg, params_np)
+    return jitm, B.BLIP2ITM.from_jax_params(tcfg, params_np, device="cpu")
 
 
 def _inputs(n_img=3):
@@ -138,7 +138,7 @@ def test_from_jax_params_layouts_and_strictness(pair):
     params_np = jax.tree_util.tree_map(np.asarray, p)
     del params_np["vision_proj"]
     with pytest.raises(RuntimeError, match="vision_proj"):
-        B.BLIP2ITM.from_jax_params(titm.cfg, params_np)
+        B.BLIP2ITM.from_jax_params(titm.cfg, params_np, device="cpu")
 
 
 def _count_norm_calls(module, fn):

@@ -14,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
+from vlfm_tpu_torch import config as TCONFIG
+from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
+from vlfm_tpu_torch.ops import attention as A
 from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.policy import itm as ITM
+from vlfm_tpu_torch.runner import fake_env as ENV
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
 
 pytestmark = pytest.mark.cuda
@@ -99,11 +105,12 @@ def test_tiny_blip2_card_matches_cpu_and_counts_launches(dev):
     ids = torch.from_numpy(rng.integers(4, 56, (2, 16)).astype(np.int64))
     mask = torch.ones(2, 16, dtype=torch.bool)
     feats = gpu.encode_texts(ids.to(dev), mask.to(dev))
-    before = layer_norm.launches
+    before, attn_before = layer_norm.launches, A.attention.launches
     got = gpu.cosine_cached_text(imgs.to(dev), feats)
     torch.cuda.synchronize()
     # ViT 2 x 2 + post_ln, Q-Former embed_ln + 2 x 2 + 1 cross_ln.
     assert layer_norm.launches - before == 5 + 6
+    assert A.attention.launches - attn_before == 2  # one K3 launch per ViT block
     want = cpu.cosine(imgs, ids, mask)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
@@ -201,3 +208,126 @@ def test_tiny_sam_card_matches_cpu_and_counts_launches(dev):
         want, want_iou = cpu.module(imgs, boxes)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(got_iou.cpu(), want_iou, atol=1e-4, rtol=1e-4)
+
+
+ATTN_VARIANTS = [
+    dict(clamp=None, normalize="probs"),
+    dict(clamp=None, normalize="output"),
+    dict(clamp=80.0, normalize="output", round_logits=True),
+    dict(clamp=60.0, normalize="output"),
+    dict(clamp=60.0, normalize="output", round_logits=True),
+]
+
+
+def _attn_inputs(shape, dtype, dev, layout="", seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, l, d = shape
+    if layout == "qkv":
+        return A.qkv_views(torch.randn(b, l, 3 * h * d, generator=gen, device=dev).to(dtype), h)
+    q, k, v = (torch.randn(b, h, l, d, generator=gen, device=dev).to(dtype) for _ in range(3))
+    if layout == "kt":
+        k = k.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return q, k, v
+
+
+@pytest.mark.parametrize("variant", range(len(ATTN_VARIANTS)))
+@pytest.mark.parametrize("shape,dtype,layout", [
+    ((32, 16, 257, 88), torch.bfloat16, "qkv"),  # ViT-g at B=32, as the ViT passes it
+    ((2, 16, 257, 88), torch.bfloat16, ""),
+    ((2, 16, 257, 88), torch.bfloat16, "kt"),     # K stored transposed
+    ((2, 4, 1024, 64), torch.bfloat16, ""),
+    ((1, 2, 70, 128), torch.bfloat16, ""),        # the widest head, short query axis
+    ((1, 1, 9, 128), torch.float32, ""),
+    ((2, 2, 64, 32), torch.float32, ""),
+    ((1, 16, 257, 88), torch.float32, "kt"),
+    ((2, 4, 130, 16), torch.float32, "qkv"),
+    ((1, 3, 5, 8), torch.bfloat16, ""),           # fewer queries and keys than a tile
+    ((1, 2, 3000, 32), torch.bfloat16, ""),       # shared memory does not grow with L
+])
+def test_attention_kernel_matches_plain(dev, shape, dtype, layout, variant):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kw = ATTN_VARIANTS[variant]
+    q, k, v = _attn_inputs(shape, dtype, dev, layout)
+    before = A.attention.launches
+    got = A.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert A.attention.launches == before + 1
+    want = A.attention_ref(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == want.shape
+    err = (got.float() - want.float()).abs()
+    ratio = float((err / A.attention_tolerance(want, kw.get("round_logits", False))).max())
+    assert ratio <= 1.0, f"max err {float(err.max()):.3e}, {ratio:.2f} of the tolerance"
+
+
+def test_attention_padded_keys_do_not_leak(dev):
+    ones = torch.ones((1, 1, 257, 88), device=dev)
+    for kw in ATTN_VARIANTS[:2]:
+        torch.testing.assert_close(A.attention(ones, ones, ones, **kw), ones, atol=2e-5, rtol=0)
+
+
+def test_fused_qkv_attention_on_the_card_matches_cpu_and_merges_by_view(dev):
+    torch.manual_seed(0)
+    cpu = FusedQKVAttention(96, 4, device="cpu")
+    gpu = copy.deepcopy(cpu).to(dev)
+    x = torch.randn(2, 33, 96)
+    before = A.attention.launches
+    got = gpu(x.to(dev))
+    assert A.attention.launches == before + 1
+    torch.testing.assert_close(got.cpu(), cpu(x), atol=1e-5, rtol=0)
+    q, k, v = A.qkv_views(gpu.qkv(x.to(dev)), 4)
+    out = A.attention(q, k, v)
+    assert out.transpose(1, 2).is_contiguous()  # (B, L, H, D) memory
+    assert merge_heads(out).data_ptr() == out.data_ptr()  # merging the heads copies nothing
+
+
+def test_attention_on_the_card_never_takes_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(A, "attention_ref", refuse)
+    q, k, v = _attn_inputs((1, 2, 40, 24), torch.bfloat16, dev)
+    A.attention(q, k, v)
+    torch.cuda.synchronize()
+
+
+def test_attention_wrapper_raises_instead_of_falling_back(dev):
+    q, k, v = _attn_inputs((1, 2, 40, 24), torch.bfloat16, dev)
+    before = A.attention.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        A.attention(q.half(), k.half(), v.half())
+    with pytest.raises(TypeError, match="k is"):
+        A.attention(q, k.float(), v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        A.attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="D <= 128"):
+        big = torch.zeros(1, 1, 4, 160, device=dev)
+        A.attention(big, big, big)
+    with pytest.raises(ValueError, match="do not match"):
+        A.attention(q, k[:, :1], v)
+    with pytest.raises(ValueError, match="normalize"):
+        A.attention(q, k, v, normalize="rows")
+    assert A.attention.launches == before
+
+
+def test_obstacle_map_card_matches_cpu(dev):
+    """Six spin frames into a small map on both devices: the grids agree but
+    for cone-edge cells on an atan2/cos ulp tie, and so do the frontiers."""
+    cfg = TCONFIG.VLFMConfig(map_size=256, map_pad=64, camera=TCONFIG.CameraConfig(width=160, height=120))
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    env = ENV.FakeObjectNavEnv(ENV.two_room_plan(seed=0), ENV.EnvConfig(width=160, height=120))
+    views = [env.reset()] + [env.step(ENV.TURN_LEFT) for _ in range(5)]
+    states = {}
+    for d in ("cpu", dev):
+        state = OM.create(spec, cfg.max_frontiers, device=d)
+        for steps, o in enumerate(views):
+            tf = xyz_yaw_to_tf_matrix(
+                torch.tensor([*o["robot_xy"], cfg.camera.camera_height], dtype=torch.float32, device=d),
+                torch.tensor(o["heading"], dtype=torch.float32, device=d))
+            depth = torch.from_numpy(o["depth"].astype(np.float32)).to(d)
+            state = ITM.update_obstacles(state, spec, cfg, depth, tf, steps)
+        states[d] = state
+    got, want = states[dev], states["cpu"]
+    for name in ("obstacles", "navigable", "explored"):
+        assert int((getattr(got, name).cpu() != getattr(want, name)).sum()) <= 1e-3 * 6 * 224 * 224, name
+    assert torch.equal(got.frontiers_valid.cpu(), want.frontiers_valid)
+    torch.testing.assert_close(got.frontiers_xy.cpu(), want.frontiers_xy, atol=0.1, rtol=0)

@@ -51,8 +51,8 @@ def models():
     np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
     return (
         (JO.OwlViTDetector(ocfg, det_p), JS.SAM(scfg, sam_p)),
-        (O.OwlViTDetector.from_jax_params(O.OwlViTDetConfig.tiny(), np_tree(det_p)),
-         S.SAM.from_jax_params(S.SamConfig.tiny_mobile_sam(), np_tree(sam_p))),
+        (O.OwlViTDetector.from_jax_params(O.OwlViTDetConfig.tiny(), np_tree(det_p), device="cpu"),
+         S.SAM.from_jax_params(S.SamConfig.tiny_mobile_sam(), np_tree(sam_p), device="cpu")),
     )
 
 

@@ -21,7 +21,7 @@ FRONTIERS = np.array([[1.0, 0.0], [0.0, 1.0], [-1.0, 0.0], [2.0, 2.0]], np.float
 
 def _history(entries):
     """The same acyclic history in both packages: (position, frontier, top-two)."""
-    ac, jac = AC.create(16), JAC.create(16)
+    ac, jac = AC.create(16, device="cpu"), JAC.create(16)
     for pos, fr, tt in entries:
         args = [np.float32(a) for a in (pos, fr, tt)]
         ac = AC.add(ac, *(torch.from_numpy(a) for a in args))
@@ -80,7 +80,7 @@ def test_repeated_choice_becomes_cyclic():
     values = np.float32([0.5, 0.9, 0.1, 0.3])
     valid = np.ones(4, bool)
     robot = np.float32([0.25, -0.5])
-    ac, jac = AC.create(8), JAC.create(8)
+    ac, jac = AC.create(8, device="cpu"), JAC.create(8)
     last, jlast = torch.zeros(2), jnp.zeros(2)
     lv, jlv = torch.tensor(-np.inf), jnp.float32(-np.inf)
     for _ in range(3):

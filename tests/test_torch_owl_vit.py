@@ -42,7 +42,8 @@ def pair():
         jax.random.PRNGKey(0), jnp.zeros((1, s, s, 3)), jnp.zeros((1, 4), jnp.int32),
         jnp.ones((1, 4), bool))["params"]
     jdet = JO.OwlViTDetector(cfg, params)
-    tdet = O.OwlViTDetector.from_jax_params(O.OwlViTDetConfig.tiny(), jax.tree_util.tree_map(np.asarray, params))
+    tdet = O.OwlViTDetector.from_jax_params(
+        O.OwlViTDetConfig.tiny(), jax.tree_util.tree_map(np.asarray, params), device="cpu")
     return jdet, tdet
 
 

@@ -42,7 +42,8 @@ def pair():
     params = jax.jit(JS.SamModule(cfg).init)(
         jax.random.PRNGKey(0), jnp.zeros((1, s, s, 3)), jnp.zeros((1, 1, 4)))["params"]
     jsam = JS.SAM(cfg, params)
-    tsam = S.SAM.from_jax_params(S.SamConfig.tiny_mobile_sam(), jax.tree_util.tree_map(np.asarray, params))
+    tsam = S.SAM.from_jax_params(
+        S.SamConfig.tiny_mobile_sam(), jax.tree_util.tree_map(np.asarray, params), device="cpu")
     return jsam, tsam
 
 
@@ -168,4 +169,4 @@ def test_from_jax_params_layouts_and_strictness(pair):
     params_np = jax.tree_util.tree_map(np.asarray, jsam.params)
     del params_np["no_mask_embed"]
     with pytest.raises(RuntimeError, match="no_mask_embed"):
-        S.SAM.from_jax_params(tsam.cfg, params_np)
+        S.SAM.from_jax_params(tsam.cfg, params_np, device="cpu")

@@ -1,12 +1,16 @@
 """The port's slice end to end against vlfm_tpu, at tiny size on the CPU.
 
 chip_smoke.py's main path, in both packages, each with its own config,
-tokenizer and synthetic environment: a 12-view spin of the environment, BLIP2-ITM cosines for the default prompt, fusion of
-the views into the value map, waypoint values on a ring at the view
-bearings, the frontier choice and the greedy rho-theta controller
-(vlfm_tpu/policy/itm.py:253-261). Held: cosines to 1e-4, value map to
-1e-5 (but for cone-edge cells on an ulp tie, at most 0.1 % of the cells
-updated), waypoint values to 1e-4, and the same chosen waypoint and action.
+tokenizer and synthetic environment: a 12-view spin of the environment,
+BLIP2-ITM cosines for the default prompt, and per view the obstacle-map
+update with its frontiers and the fusion into the value map (the map half
+of vlfm_tpu/policy/itm.py:step, with its full-prune cadence); then V2
+values of the frontiers, the frontier choice and the greedy rho-theta
+controller (vlfm_tpu/policy/itm.py:253-261). Held: cosines to 1e-4, the
+value map to 1e-5 and the obstacle grids cell for cell (but for cone-edge
+cells on an ulp tie, at most 0.1 % of the cells updated), the frontiers
+(their validity exactly, their position to 1e-6 m), waypoint values to
+1e-4, and the same chosen frontier and action.
 """
 
 import dataclasses
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from vlfm_tpu.config import CameraConfig, VLFMConfig
+from vlfm_tpu.mapping import obstacle_map as JOM
 from vlfm_tpu.mapping import value_map as JVM
 from vlfm_tpu.mapping.grid import GridSpec2D as JGrid
 from vlfm_tpu.models import blip2_itm as JB
@@ -33,6 +38,7 @@ from vlfm_tpu.policy.frontier_selection import select_best_frontier as jax_selec
 from vlfm_tpu.runner.fake_env import EnvConfig, FakeObjectNavEnv, two_room_plan
 from vlfm_tpu.utils import geometry as JG
 from vlfm_tpu_torch import config as TCONFIG
+from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models import tokenizer as TTOK
@@ -49,7 +55,6 @@ TCFG = TCONFIG.VLFMConfig(map_size=512, camera=TCONFIG.CameraConfig(width=160, h
 SPEC = GridSpec2D(CFG.map_size, CFG.pixels_per_meter, CFG.map_pad)
 JSPEC = JGrid(CFG.map_size, CFG.pixels_per_meter, CFG.map_pad)
 TARGET = "chair"
-RING_M = 2.0
 HIGH_VIEW = 7
 MAP_ATOL = 1e-5
 EDGE_FLIP_FRACTION = 1e-3
@@ -78,66 +83,71 @@ def engines():
         jax.random.PRNGKey(0), jnp.zeros((1, s, s, 3)), jnp.zeros((1, 4), jnp.int32),
         jnp.ones((1, 4), bool))["params"]
     tcfg = dataclasses.replace(BLIP2ITMConfig.tiny(), compute_dtype=torch.float32)
-    titm = BLIP2ITM.from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params))
+    titm = BLIP2ITM.from_jax_params(tcfg, jax.tree_util.tree_map(np.asarray, params), device="cpu")
     return (JEngine(JB.BLIP2ITM(jcfg, params), WordPieceTokenizer(toy_vocab()),
                     text_prompt=CFG.text_prompt),
             PerceptionEngine(titm, TTOK.WordPieceTokenizer(TTOK.toy_vocab()), TCFG.text_prompt))
 
 
-def _ring(views):
-    robot = np.float32(views[-1]["robot_xy"])
-    bearings = np.float32([o["heading"] for o in views])
-    ring = robot + np.float32(RING_M) * np.stack([np.cos(bearings), np.sin(bearings)], 1)
-    return robot, np.float32(views[-1]["heading"]), ring
+def _robot(views):
+    return np.float32(views[-1]["robot_xy"]), np.float32(views[-1]["heading"])
 
 
 def run_jax(views, cosines):
     cam = CFG.camera
+    obstacle = JOM.create(JSPEC, CFG.max_frontiers)
     state = JVM.create(JSPEC, CFG.value_channels)
-    for o, c in zip(views, cosines):
+    for steps, (o, c) in enumerate(zip(views, cosines)):
         xyz = jnp.array([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height], jnp.float32)
         tf = JG.xyz_yaw_to_tf_matrix(xyz, jnp.float32(o["heading"]))
-        state = JVM.update(state, JSPEC, c, jnp.asarray(o["depth"], jnp.float32), tf,
-                           cam.min_depth, cam.max_depth, cam.hfov,
+        depth = jnp.asarray(o["depth"], jnp.float32)
+        obstacle = JOM.update(  # vlfm_tpu/policy/itm.py:124-140
+            obstacle, JSPEC, depth, tf, cam.min_depth, cam.max_depth, cam.fx, cam.fy, cam.hfov,
+            min_height=CFG.min_obstacle_height, max_height=CFG.max_obstacle_height,
+            area_thresh_m2=CFG.obstacle_map_area_threshold, full_prune=(steps % 8) == 0,
+            agent_radius=CFG.agent_radius, max_frontier_cells=CFG.max_frontier_cells,
+            max_frontiers=CFG.max_frontiers)
+        state = JVM.update(state, JSPEC, c, depth, tf, cam.min_depth, cam.max_depth, cam.hfov,
                            use_max_confidence=CFG.use_max_confidence,
                            fusion_type=JVM.FUSION_DEFAULT)
-    robot, heading, ring = _ring(views)
-    valid = jnp.ones(len(views), bool)
-    wv = JVM.waypoint_values(state, JSPEC, jnp.asarray(ring), valid,
-                             radius_px=int(0.5 * JSPEC.pixels_per_meter))
-    choice = jax_select(jnp.asarray(ring), valid, wv[:, 0], jnp.asarray(robot), jnp.zeros(2),
+    robot, heading = _robot(views)
+    fxy, valid = obstacle.frontiers_xy, obstacle.frontiers_valid
+    wv = JVM.waypoint_values(state, JSPEC, fxy, valid, radius_px=int(0.5 * JSPEC.pixels_per_meter))
+    choice = jax_select(fxy, valid, wv[:, 0], jnp.asarray(robot), jnp.zeros(2),
                         jnp.float32(-jnp.inf), JAC.create())
     rho, theta = JG.rho_theta(jnp.asarray(robot), jnp.float32(heading), choice.frontier)
     half_turn = jnp.deg2rad(15.0)  # vlfm_tpu/policy/itm.py:256-261
     action = jnp.where(theta > half_turn, JITM.TURN_LEFT,
                        jnp.where(theta < -half_turn, JITM.TURN_RIGHT, JITM.MOVE_FORWARD))
     action = jnp.where(choice.any_valid, action, JITM.STOP)
-    return state, wv, choice, (float(rho), float(theta)), int(action)
+    return obstacle, state, wv, choice, (float(rho), float(theta)), int(action)
 
 
 def run_torch(views, cosines):
     cam = TCFG.camera
+    obstacle = OM.create(SPEC, TCFG.max_frontiers, device="cpu")
     state = VM.create(SPEC, TCFG.value_channels, device="cpu")
-    for o, c in zip(views, cosines):
+    for steps, (o, c) in enumerate(zip(views, cosines)):
         xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height])
         tf = G.xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32))
-        ITM.fuse_view(state, SPEC, TCFG, c, torch.from_numpy(o["depth"].astype(np.float32)), tf)
-    robot, heading, ring = _ring(views)
-    dec = ITM.decide(state, SPEC, torch.from_numpy(ring), torch.ones(len(views), dtype=torch.bool),
-                     torch.from_numpy(robot), torch.tensor(heading), torch.zeros(2),
-                     torch.tensor(-np.inf), AC.create())
-    return state, dec
+        depth = torch.from_numpy(o["depth"].astype(np.float32))
+        obstacle = ITM.update_obstacles(obstacle, SPEC, TCFG, depth, tf, steps)
+        ITM.fuse_view(state, SPEC, TCFG, c, depth, tf)
+    robot, heading = _robot(views)
+    dec = ITM.decide(state, SPEC, obstacle, torch.from_numpy(robot), torch.tensor(heading), torch.zeros(2),
+                     torch.tensor(-np.inf), AC.create(device="cpu"))
+    return obstacle, state, dec
 
 
-def _chosen(ring, frontier):
-    return int(np.argmin(np.linalg.norm(ring - np.asarray(frontier), axis=1)))
+def _chosen(frontiers, frontier):
+    return int(np.argmin(np.linalg.norm(np.asarray(frontiers) - np.asarray(frontier), axis=1)))
 
 
 def _assert_map_close(got, want, n_views):
     """Within MAP_ATOL, except cells on a cone-edge ulp tie (XLA's CPU atan2
     and cos against PyTorch's, see test_torch_value_map.py), which may flip:
     at most EDGE_FLIP_FRACTION of the cells the spin updated."""
-    bad = np.abs(got - np.asarray(want)) > MAP_ATOL
+    bad = np.abs(got.astype(np.float32) - np.asarray(want, np.float32)) > MAP_ATOL
     if bad.ndim == 3:
         bad = bad.any(-1)
     assert bad.sum() <= EDGE_FLIP_FRACTION * n_views * 256 * 256, f"{bad.sum()} cells differ"
@@ -145,18 +155,26 @@ def _assert_map_close(got, want, n_views):
 
 def _compare(views, jcos, tcos):
     jviews, tviews = views
-    jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos)
-    tstate, dec = run_torch(tviews, tcos)
+    jobs, jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos)
+    tobs, tstate, dec = run_torch(tviews, tcos)
     _assert_map_close(tstate.conf.numpy(), jstate.conf, len(tviews))
     _assert_map_close(tstate.values.numpy(), jstate.values, len(tviews))
+    for name in ("obstacles", "navigable", "explored"):
+        _assert_map_close(getattr(tobs, name).numpy(), getattr(jobs, name), len(tviews))
+    valid = tobs.frontiers_valid.numpy()
+    np.testing.assert_array_equal(valid, np.asarray(jobs.frontiers_valid))
+    assert valid.sum() >= 2
+    # XLA's jit divides by pixels_per_meter as a product with its reciprocal.
+    np.testing.assert_allclose(tobs.frontiers_xy.numpy(), np.asarray(jobs.frontiers_xy), atol=1e-6, rtol=0)
     np.testing.assert_allclose(dec.waypoint_values.numpy(), np.asarray(jwv), atol=1e-4)
-    _, _, ring = _ring(tviews)
-    chosen = _chosen(ring, dec.choice.frontier.numpy())
-    assert chosen == _chosen(ring, jchoice.frontier)
+    fxy = tobs.frontiers_xy.numpy()[valid]
+    chosen = _chosen(fxy, dec.choice.frontier.numpy())
+    assert chosen == _chosen(fxy, jchoice.frontier)
+    np.testing.assert_allclose(float(dec.choice.value), float(jchoice.value), atol=1e-4)
     np.testing.assert_allclose([float(dec.rho), float(dec.theta)], jrt, atol=1e-5)
     assert int(dec.action) == jaction
     np.testing.assert_array_equal(dec.choice.acyclic.keys.numpy(), np.asarray(jchoice.acyclic.keys))
-    return chosen, int(dec.action)
+    return fxy[chosen], int(dec.action)
 
 
 def test_spin_slice_with_itm_cosines_matches_jax(views, engines):
@@ -170,11 +188,15 @@ def test_spin_slice_with_itm_cosines_matches_jax(views, engines):
 
 def test_spin_slice_picks_the_high_value_view_like_jax(views):
     """chip_smoke.py phase 5: a high cosine at view 7 and a low one
-    elsewhere must send both packages to the waypoint at view 7's bearing."""
+    elsewhere must send both packages to the frontier inside view 7's
+    field of view."""
     cos = np.full((12, CFG.value_channels), 0.1, np.float32)
     cos[HIGH_VIEW] = 0.9
-    chosen, action = _compare(views, jnp.asarray(cos), torch.from_numpy(cos))
-    assert chosen == HIGH_VIEW
+    frontier, action = _compare(views, jnp.asarray(cos), torch.from_numpy(cos))
+    robot, _ = _robot(views[1])
+    bearing = np.arctan2(frontier[1] - robot[1], frontier[0] - robot[0])
+    off = (bearing - views[1][HIGH_VIEW]["heading"] + np.pi) % (2 * np.pi) - np.pi
+    assert abs(off) <= CFG.camera.hfov / 2  # the frontier lies in view 7's cone
     assert action in (ITM.TURN_LEFT, ITM.TURN_RIGHT, ITM.MOVE_FORWARD)
 
 

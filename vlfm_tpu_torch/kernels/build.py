@@ -110,4 +110,8 @@ def load_library() -> ctypes.CDLL:
     lib.vlfm_mbconv_chain.restype = i
     lib.vlfm_mbconv_chain_route.argtypes = [p, p, p, p, i, i, i, i]
     lib.vlfm_mbconv_chain_route.restype = i
+    f = ctypes.c_float
+    lib.vlfm_attention.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, f,
+                                   i, i, i, i, i, p]
+    lib.vlfm_attention.restype = i
     return lib

@@ -17,6 +17,8 @@ from dataclasses import dataclass
 
 import torch
 
+from vlfm_tpu_torch.device import default_device
+
 
 @dataclass(frozen=True)
 class GridSpec2D:
@@ -67,7 +69,7 @@ class GridSpec2D:
         dtype: torch.dtype = torch.float32,
         channels: int | None = None,
         *,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = default_device(),
     ) -> torch.Tensor:
         s = self.storage_size
         shape = (s, s) if channels is None else (s, s, channels)

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.ops.cone import depth_row_max, visible_confidence_window
 from vlfm_tpu_torch.ops.median import masked_median
@@ -37,7 +38,7 @@ class ValueMapState(NamedTuple):
     values: torch.Tensor  # (S, S, C) float32
 
 
-def create(spec: GridSpec2D, value_channels: int, *, device: torch.device | str = "cpu") -> ValueMapState:
+def create(spec: GridSpec2D, value_channels: int, *, device: torch.device | str = default_device()) -> ValueMapState:
     return ValueMapState(
         conf=spec.zeros(device=device), values=spec.zeros(channels=value_channels, device=device)
     )

@@ -20,6 +20,7 @@ from typing import Any, Mapping
 import torch
 from torch import nn
 
+from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.models.layers import Dense
 from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
 from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig, TextEmbeddings
@@ -104,7 +105,7 @@ class BLIP2ITM:
 
     @classmethod
     def init_random(
-        cls, cfg: BLIP2ITMConfig, seed: int = 0, device: torch.device | str = "cpu"
+        cls, cfg: BLIP2ITMConfig, seed: int = 0, device: torch.device | str = default_device()
     ) -> "BLIP2ITM":
         """Random f32 weights on ``device``, drawn from a seeded generator
         there (the same seed gives other numbers than JAX's init)."""
@@ -115,7 +116,7 @@ class BLIP2ITM:
 
     @classmethod
     def from_jax_params(
-        cls, cfg: BLIP2ITMConfig, params_np: Mapping[str, Any], device: torch.device | str = "cpu"
+        cls, cfg: BLIP2ITMConfig, params_np: Mapping[str, Any], device: torch.device | str = default_device()
     ) -> "BLIP2ITM":
         """Load a ``vlfm_tpu`` BLIP2ITM parameter tree given as numpy arrays.
         Every parameter must be present and every shape must match."""

@@ -9,7 +9,8 @@ Compute policy: parameters may be stored f32 or bf16; a ``Dense`` computes
 in the promoted type of its input and weight, as flax's ``nn.Dense`` does.
 LayerNorm statistics are f32 (the CUDA kernel in ``ops/norms.py``, or the
 plain ``LayerNorm`` where the JAX package uses flax's ``nn.LayerNorm``); the
-attention softmax is f32; GELU is the exact erf form.
+attention softmax is f32 (the ViT's attention on the card is the CUDA kernel
+in ``ops/attention.py``); GELU is the exact erf form.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlfm_tpu_torch.ops.attention import attention as fused_attention, qkv_views
 from vlfm_tpu_torch.ops.norms import layer_norm
 
 
@@ -123,7 +125,15 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 class FusedQKVAttention(nn.Module):
-    """CLIP/EVA-style attention with one fused qkv projection."""
+    """CLIP/EVA-style attention with one fused qkv projection.
+
+    q, k and v reach attention as strided views of the projection. On CUDA
+    tensors attention is the K3 kernel (``ops.attention``) in its
+    max-subtracted, probability-normalised form, the function of the JAX
+    package's ``attention`` off the TPU; the kernel writes (B, L, H, D)
+    memory, so merging the heads is a view. On CPU tensors it is the plain
+    ``attention`` above.
+    """
 
     def __init__(self, dim: int, num_heads: int, *, device=None):
         super().__init__()
@@ -132,9 +142,9 @@ class FusedQKVAttention(nn.Module):
         self.proj = Dense(dim, dim, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        q, k, v = self.qkv(x).chunk(3, dim=-1)
-        q, k, v = (split_heads(t, self.num_heads) for t in (q, k, v))
-        return self.proj(merge_heads(attention(q, k, v)))
+        q, k, v = qkv_views(self.qkv(x), self.num_heads)
+        out = attention(q, k, v) if x.device.type == "cpu" else fused_attention(q, k, v)
+        return self.proj(merge_heads(out))
 
 
 class BertAttention(nn.Module):

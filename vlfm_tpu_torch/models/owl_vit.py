@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.models.layers import Dense, FastLayerNorm
 from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
 from vlfm_tpu_torch.ops.resize import resize_bilinear
@@ -246,7 +247,7 @@ class OwlViTDetector:
 
     @classmethod
     def init_random(cls, cfg: OwlViTDetConfig, seed: int = 0,
-                    device: torch.device | str = "cpu") -> "OwlViTDetector":
+                    device: torch.device | str = default_device()) -> "OwlViTDetector":
         """Random f32 weights on ``device``, drawn from a seeded generator
         there (the same seed gives other numbers than JAX's init)."""
         module = OwlViTDetectionModule(cfg, device=device)
@@ -255,7 +256,7 @@ class OwlViTDetector:
 
     @classmethod
     def from_jax_params(cls, cfg: OwlViTDetConfig, params_np: Mapping[str, Any],
-                        device: torch.device | str = "cpu") -> "OwlViTDetector":
+                        device: torch.device | str = default_device()) -> "OwlViTDetector":
         """Load a ``vlfm_tpu`` OWL-ViT parameter tree given as numpy arrays.
         Every parameter must be present and every shape must match."""
         module = OwlViTDetectionModule(cfg, device=device)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm, Norm
 from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
 from vlfm_tpu_torch.models.tinyvit import TinyViT, TinyViTConfig
@@ -329,7 +330,7 @@ class SAM:
         self.module = module.eval().requires_grad_(False)
 
     @classmethod
-    def init_random(cls, cfg: SamConfig, seed: int = 0, device: torch.device | str = "cpu") -> "SAM":
+    def init_random(cls, cfg: SamConfig, seed: int = 0, device: torch.device | str = default_device()) -> "SAM":
         """Random f32 weights on ``device``, drawn from a seeded generator
         there (the same seed gives other numbers than JAX's init)."""
         module = SamModule(cfg, device=device)
@@ -338,7 +339,7 @@ class SAM:
 
     @classmethod
     def from_jax_params(cls, cfg: SamConfig, params_np: Mapping[str, Any],
-                        device: torch.device | str = "cpu") -> "SAM":
+                        device: torch.device | str = default_device()) -> "SAM":
         """Load a ``vlfm_tpu`` SAM (TinyViT) parameter tree given as numpy
         arrays. Every parameter must be present and every shape must match."""
         module = SamModule(cfg, device=device)

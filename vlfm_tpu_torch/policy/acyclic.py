@@ -12,6 +12,8 @@ from typing import NamedTuple
 
 import torch
 
+from vlfm_tpu_torch.device import default_device
+
 CAPACITY = 512
 _QUANT = 1000.0  # millimetre quantization
 
@@ -21,7 +23,7 @@ class AcyclicState(NamedTuple):
     count: torch.Tensor  # () int32
 
 
-def create(capacity: int = CAPACITY, *, device: torch.device | str = "cpu") -> AcyclicState:
+def create(capacity: int = CAPACITY, *, device: torch.device | str = default_device()) -> AcyclicState:
     return AcyclicState(
         keys=torch.zeros((capacity, 6), dtype=torch.int32, device=device),
         count=torch.zeros((), dtype=torch.int32, device=device),

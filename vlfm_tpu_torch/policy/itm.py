@@ -1,16 +1,16 @@
-"""The value-map half of the ITM policy step.
+"""The map half of the ITM policy step.
 
 Counterpart of the parts of ``vlfm_tpu/policy/itm.py:step`` that need no
-obstacle or object map: fusing ITM cosines into the value map
-(itm.py:191-211), scoring candidate waypoints by the value-map median within
-0.5 m (V2, itm.py:212-225), the frontier choice, and the greedy rho-theta
-controller (itm.py:253-261). The candidates are supplied by the caller until
-the obstacle map and its frontiers are ported.
+object map or PointNav: the obstacle-map update with its frontiers
+(itm.py:124-140), fusing ITM cosines into the value map (itm.py:142-156),
+scoring the frontiers by the value-map median within 0.5 m (V2,
+itm.py:212-225), the frontier choice, and the greedy rho-theta controller
+(itm.py:253-261).
 
-``fuse_view`` and ``decide`` have no namesakes in the JAX module: they are
-the two halves of ``step`` that this slice needs, and they go when ``step``
-itself is ported (ROADMAP Queue 1), which then owns the fusion and the
-decision.
+``update_obstacles``, ``fuse_view`` and ``decide`` have no namesakes in the
+JAX module: they are the three parts of ``step`` that this slice needs, and
+they go when ``step`` itself is ported (ROADMAP Queue 1 item 3), which then
+owns the maps and the decision.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from vlfm_tpu_torch.config import VLFMConfig
+from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.policy import acyclic as AC
@@ -38,7 +39,7 @@ FUSION_TYPES = {
 
 class Decision(NamedTuple):
     choice: FrontierChoice
-    waypoint_values: torch.Tensor  # (K, C)
+    waypoint_values: torch.Tensor  # (F, C)
     rho: torch.Tensor  # ()
     theta: torch.Tensor  # ()
     action: torch.Tensor  # () int32
@@ -53,6 +54,37 @@ def greedy_action(theta: torch.Tensor) -> torch.Tensor:
         TURN_LEFT,
         torch.where(theta < -half_turn, TURN_RIGHT, MOVE_FORWARD),
     ).to(torch.int32)
+
+
+def update_obstacles(
+    state: OM.ObstacleMapState,
+    spec: GridSpec2D,
+    cfg: VLFMConfig,
+    depth: torch.Tensor,  # (H, W) normalized [0, 1]
+    tf_camera_to_episodic: torch.Tensor,  # (4, 4)
+    steps: int | torch.Tensor,  # the policy's step count before this step
+) -> OM.ObstacleMapState:
+    """One obstacle-map update with the policy's camera and map settings;
+    every 8th step prunes the explored area from the agent alone."""
+    cam = cfg.camera
+    return OM.update(
+        state,
+        spec,
+        depth,
+        tf_camera_to_episodic,
+        cam.min_depth,
+        cam.max_depth,
+        cam.fx,
+        cam.fy,
+        cam.hfov,
+        min_height=cfg.min_obstacle_height,
+        max_height=cfg.max_obstacle_height,
+        area_thresh_m2=cfg.obstacle_map_area_threshold,
+        full_prune=(steps % 8) == 0,
+        agent_radius=cfg.agent_radius,
+        max_frontier_cells=cfg.max_frontier_cells,
+        max_frontiers=cfg.max_frontiers,
+    )
 
 
 def fuse_view(
@@ -82,19 +114,20 @@ def fuse_view(
 def decide(
     state: VM.ValueMapState,
     spec: GridSpec2D,
-    waypoints: torch.Tensor,  # (K, 2) world meters
-    valid: torch.Tensor,  # (K,) bool
+    obstacle: OM.ObstacleMapState,
     robot_xy: torch.Tensor,  # (2,)
     heading: torch.Tensor,  # ()
     last_frontier: torch.Tensor,  # (2,)
     last_value: torch.Tensor,  # ()
     acyclic: AC.AcyclicState,
 ) -> Decision:
-    """V2 waypoint scoring, frontier choice and the greedy action."""
+    """V2 scoring of the obstacle map's frontiers, the frontier choice and
+    the greedy action (STOP when there is no frontier)."""
+    frontiers, valid = obstacle.frontiers_xy, obstacle.frontiers_valid
     radius_px = int(0.5 * spec.pixels_per_meter)
-    wvals = VM.waypoint_values(state, spec, waypoints, valid, radius_px=radius_px)
+    wvals = VM.waypoint_values(state, spec, frontiers, valid, radius_px=radius_px)
     choice = select_best_frontier(
-        waypoints, valid, wvals[:, 0], robot_xy, last_frontier, last_value, acyclic
+        frontiers, valid, wvals[:, 0], robot_xy, last_frontier, last_value, acyclic
     )
     rho, theta = rho_theta(robot_xy, heading, choice.frontier)
     action = torch.where(choice.any_valid, greedy_action(theta), STOP).to(torch.int32)
