@@ -39,11 +39,29 @@ Phases (any failure raises, and the script exits non-zero):
      COCO target (both routes) and a non-COCO target at threshold 0 (every
      frame detects, so gated SAM runs all its passes); K1 and K2 launches
      are counted over this run; gated masks must match ungated ones;
- 12. full-width detection timings: one pipeline call at B=8 and its parts.
+ 12. full-width detection timings: one pipeline call at B=8 and its parts;
+ 13. the deformable gather kernel (K4) against its plain version at the
+     GroundingDINO encoder's shape (B=8, Q = S = 13,294 over four levels)
+     in the main path's f32 and in bf16, at the decoder's (Q = 900, grids
+     from reference boxes) and at ragged f32 and bf16 shapes, with grids
+     over [-1.5, 1.5] and some at +-1e6; CUDA-event timings of the kernel,
+     the plain version and the grid_sample formulation, and the bound;
+ 14. tiny GroundingDINO pipeline (GroundingDINO -> gated MobileSAM): the
+     same weights on the CPU and on the card (K4 4 times per detect call)
+     give the same boxes, scores, validity and classes, and masks within a
+     flip bound;
+ 15. the GroundingDINO detection path at full width: GroundingDINO
+     SwinT-OGC (Swin-T at 800 px, BERT-base, 900 queries, 256 tokens,
+     random bf16 weights) as the pipeline's open-vocabulary detector, the
+     OWL-ViT COCO route of phase 11, gated MobileSAM, on the 8 spin frames;
+     a non-COCO target at the config threshold and at 0, and a COCO
+     target; K4 launches 12 times per GroundingDINO detect call;
+ 16. GroundingDINO timings: one detect call at B=8 (wall, and device time
+     under torch.profiler with K4's share) and one pipeline call.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
-phases 6, 8 and 12 down by kernel.
+phases 6, 8 and 12 (and, with ``--gdino``, of phase 16) down by kernel.
 """
 
 from __future__ import annotations
@@ -66,7 +84,17 @@ from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from vlfm_tpu_torch.models.coco_classes import COCO_CLASSES
 from vlfm_tpu_torch.models.coco_detector import CocoDetector
+from vlfm_tpu_torch.models.grounding_dino import (
+    GroundingDinoConfig,
+    GroundingDinoDetector,
+    GroundingDinoQueryAdapter,
+    deformable_attentions,
+)
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
 from vlfm_tpu_torch.models.precision import cast_for_serving
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
@@ -74,6 +102,7 @@ from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops.attention import attention, attention_ref, attention_tolerance, qkv_views
 from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
+from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
@@ -162,6 +191,24 @@ LAUNCHES_DETECT = 27 + 25
 TINY_BOX_ATOL = 1e-4
 TINY_MASK_FLIPS = 1e-3  # f32: a pixel flips only where its logit is within ~1e-4 of 0
 GATED_MASK_FLIPS = 1e-2  # bf16: cuBLAS picks other GEMM tilings at 2 and 8 frames
+# GroundingDINO's four levels at 800 px: Swin-T stages 2-4 (strides 8, 16,
+# 32) and the extra stride-2 conv, S = 13,294 tokens.
+DEFORM_LEVELS = ((100, 100), (50, 50), (25, 25), (13, 13))
+# (name, B, Q, nh, dh, levels, P, value dtype, weights dtype, grids from
+# reference boxes): the encoder's self-attention (Q = S) in the main path's
+# f32 (flax's promotion keeps GroundingDINO's streams f32 under bf16
+# weights) and in bf16, the decoder's cross-attention (900 queries, 4-d
+# reference boxes), and the CPU tests' ragged shape in f32 and bf16.
+DEFORM_CASES = [
+    ("encoder, the main path's f32", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, False),
+    ("encoder, bf16 value and weights", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.bfloat16, torch.bfloat16, False),
+    ("decoder, the main path's f32", 8, 900, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, True),
+    ("ragged f32", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, False),
+    ("ragged bf16", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.bfloat16, torch.float32, False),
+]
+FAR_SHARE = 0.01  # grids at +-1e6: far off every map
+TINY_GDINO_BOX_ATOL = 1e-4
+K4_PER_DETECT = deformable_attentions(GroundingDinoConfig())  # 6 encoder + 6 decoder layers
 
 
 def log(msg: str) -> None:
@@ -649,14 +696,17 @@ def build_detection_path():
     return cfg, det, sam, rgb
 
 
-def check_detections(name, out, b, h, w, k) -> int:
+def check_detections(name, out, b, h, w, k, n_classes=80) -> int:
+    """Shapes, finite boxes in [0, 1], masks only on valid slots, and class
+    ids below ``n_classes`` (the COCO classes, or a caption's phrases).
+    Returns the number of frames with a valid detection."""
     masks, valid, (xyxy, scores, cls) = out
     check(masks.shape == (b, k, h, w) and masks.dtype == torch.bool, f"{name}: mask shape")
     check(valid.shape == (b, k) and xyxy.shape == (b, k, 4), f"{name}: box shape")
     check(bool(torch.isfinite(xyxy).all() and torch.isfinite(scores.float()).all()), f"{name}: finite boxes")
     check(bool(((xyxy >= 0) & (xyxy <= 1)).all()), f"{name}: boxes in [0, 1]")
     check(not bool(masks[~valid].any()), f"{name}: masks only where valid")
-    check(bool(((cls >= 0) & (cls < 80)).all()), f"{name}: class ids")
+    check(bool(((cls >= 0) & (cls < n_classes)).all()), f"{name}: class ids")
     return int(valid.any(dim=1).sum())
 
 
@@ -730,6 +780,246 @@ def phase_detection_timing(cfg, det, sam, rgb, smi: str) -> None:
         log(f"[det-time] B={DET_BATCH} {name}: {ms:.2f} ms (wall, median of 10) on {smi}")
 
 
+# --- phase 13 ----------------------------------------------------------------
+def deform_inputs(b, q, nh, dh, levels, npts, vdtype, wdtype, from_boxes, gen):
+    """Seeded value, grids and softmaxed weights on the card. Grids spread
+    over [-1.5, 1.5] (the encoder: reference points plus offsets), or come
+    from reference boxes as the decoder makes them; FAR_SHARE of them sit at
+    +-1e6."""
+    s = sum(h * w for h, w in levels)
+
+    def rnd(*shape):
+        return torch.rand(*shape, generator=gen, device=DEV)
+
+    value = torch.randn(b, s, nh * dh, generator=gen, device=DEV).to(vdtype)
+    shape = (b, q, nh, len(levels), npts, 2)
+    if from_boxes:
+        boxes = torch.cat([rnd(b, q, 2), 0.02 + 0.5 * rnd(b, q, 2)], -1)[:, :, None, None, None, :]
+        offsets = torch.randn(*shape, generator=gen, device=DEV)
+        grids = 2 * (boxes[..., :2] + offsets / npts * boxes[..., 2:] * 0.5) - 1
+    else:
+        grids = (rnd(*shape) * 2 - 1) * 1.5
+    grids = torch.where(rnd(*shape) < FAR_SHARE, torch.where(rnd(*shape) < 0.5, -1e6, 1e6), grids).contiguous()
+    logits = torch.randn(b, q, nh, len(levels) * npts, generator=gen, device=DEV)
+    weights = torch.softmax(logits, -1).reshape(b, q, nh, len(levels), npts).to(wdtype)
+    return value, grids, weights
+
+
+def deform_grid_sample(value, levels, grids, weights):
+    """The same function as HF's pure-PyTorch
+    ``multi_scale_deformable_attention``: one ``F.grid_sample`` per level
+    (bilinear, zeros, align_corners=False), then the weighted sum. Timed
+    beside K4 as a yardstick only; the port never calls it. grid_sample
+    takes one dtype, so a bf16 value is cast to the grids' f32 first."""
+    b, q, nh, nl, npts, _ = grids.shape
+    dh = value.shape[-1] // nh
+    start, samples = 0, []
+    for li, (h, w) in enumerate(levels):
+        v = value[:, start:start + h * w].to(grids.dtype).transpose(1, 2).reshape(b * nh, dh, h, w)
+        g = grids[:, :, :, li].transpose(1, 2).reshape(b * nh, q, npts, 2)
+        samples.append(F.grid_sample(v, g, mode="bilinear", padding_mode="zeros", align_corners=False))
+        start += h * w
+    wts = weights.transpose(1, 2).reshape(b * nh, 1, q, nl * npts).to(grids.dtype)
+    out = (torch.stack(samples, dim=-2).flatten(-2) * wts).sum(-1)  # (B*nh, dh, Q)
+    return out.reshape(b, nh, dh, q).permute(0, 3, 1, 2)
+
+
+def phase_deform_gather() -> dict:
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    rows_out = []
+    for name, b, q, nh, dh, levels, npts, vdt, wdt, from_boxes in DEFORM_CASES:
+        value, grids, weights = deform_inputs(b, q, nh, dh, levels, npts, vdt, wdt, from_boxes, gen)
+        got = deform_gather(value, levels, grids, weights)
+        torch.cuda.synchronize()
+        want = deform_gather_ref(value, levels, grids, weights)
+        check(got.shape == want.shape == (b, q, nh, dh) and got.dtype == torch.float32, f"K4 {name} shape/dtype")
+        max_abs = float((got - want).abs().max())
+        tol = deform_gather_tolerance(value, weights)
+        gs_err = float((deform_grid_sample(value, levels, grids, weights) - want).abs().max())
+        ms = _median_ms(lambda: deform_gather(value, levels, grids, weights))
+        plain_ms = _median_ms(lambda: deform_gather_ref(value, levels, grids, weights))
+        gs_ms = _median_ms(lambda: deform_grid_sample(value, levels, grids, weights))
+        # Each input read once and the f32 output written once. The four
+        # taps' weighted sum, the attention weight and the accumulation:
+        # 9 operations per channel and ~30 for a sample's position.
+        samples = weights.numel()
+        n_bytes = sum(t.numel() * t.element_size() for t in (value, grids, weights)) + got.numel() * 4
+        bound_ms, bound_by = bound(n_bytes, samples * (9 * dh + 30), torch.float32)
+        taps_gb = samples * 4 * dh * value.element_size() / 1e9
+        log(
+            f"[deform_gather] {name}: B={b} Q={q} nh={nh} dh={dh} levels {list(levels)} P={npts} "
+            f"value {str(vdt).split('.')[-1]} weights {str(wdt).split('.')[-1]}: max_abs_err={max_abs:.3e} "
+            f"(tol {tol:.3e}) {'ok' if max_abs <= tol else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"grid_sample formulation {gs_ms:.4f} ms (err {gs_err:.3e}; not a library counterpart), "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); the samples' taps are "
+            f"{taps_gb:.2f} GB of L2 traffic"
+        )
+        check(max_abs <= tol, f"deform_gather {name} disagrees with its plain version")
+        rows_out.append(dict(name=name, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, grid_sample_ms=gs_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        del value, grids, weights, got, want
+    torch.cuda.empty_cache()
+    return rows_out[0]  # the encoder at the main path's dtype stands for the kernel
+
+
+# --- phase 14 ----------------------------------------------------------------
+def gdino_tokenize(name: str) -> np.ndarray:
+    """A class name's WordPiece ids without [CLS]/[SEP], toy vocabulary."""
+    return np.asarray(WordPieceTokenizer(toy_vocab()).encode(name)[1:-1])
+
+
+def make_gdino_pipeline(adapter, sam, cfg: VLFMConfig, capacity, coco=None, non_coco_threshold=None):
+    return DetectionPipeline(
+        adapter, sam, adapter.make_query_encoder(gdino_tokenize), coco_detector=coco,
+        coco_threshold=cfg.coco_threshold,
+        non_coco_threshold=cfg.non_coco_threshold if non_coco_threshold is None else non_coco_threshold,
+        max_detections=cfg.max_detections_per_frame, sam_frame_capacity=capacity,
+    )
+
+
+def phase_tiny_gdino_pipeline() -> None:
+    cfg = VLFMConfig()
+    gd_cpu = GroundingDinoDetector.init_random(GroundingDinoConfig.tiny_test(), seed=0, device="cpu")
+    sam_cpu = SAM.init_random(SamConfig.tiny_mobile_sam(), seed=0, device="cpu")
+    gd_gpu = GroundingDinoDetector(gd_cpu.cfg, copy.deepcopy(gd_cpu.module).to(DEV))
+    sam_gpu = SAM(sam_cpu.cfg, copy.deepcopy(sam_cpu.module).to(DEV))
+    rgb = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (3, 48, 64, 3), dtype=np.uint8))
+    per_call = deformable_attentions(gd_cpu.cfg)
+    for thr in (None, 0.0):
+        want = make_gdino_pipeline(GroundingDinoQueryAdapter(gd_cpu, 64), sam_cpu, cfg, 2, non_coco_threshold=thr)(
+            rgb, OPEN_TARGET)
+        k40 = deform_gather.launches
+        got = make_gdino_pipeline(GroundingDinoQueryAdapter(gd_gpu, 64), sam_gpu, cfg, 2, non_coco_threshold=thr)(
+            rgb.to(DEV), OPEN_TARGET)
+        torch.cuda.synchronize()
+        k4 = deform_gather.launches - k40
+        (gm, gv, (gx, gs, gc)), (wm, wv, (wx, ws, wc)) = got, want
+        box_err = max(float((gx.cpu() - wx).abs().max()), float((gs.cpu() - ws).abs().max()))
+        flips = float((gm.cpu() != wm).float().mean())
+        log(
+            f"[tiny-gdino] {OPEN_TARGET} at threshold {cfg.non_coco_threshold if thr is None else thr}: card vs CPU "
+            f"boxes/scores max_abs_err={box_err:.3e} (tol {TINY_GDINO_BOX_ATOL}), valid equal "
+            f"{bool(torch.equal(gv.cpu(), wv))}, cls equal {bool(torch.equal(gc.cpu(), wc))}, {int(wv.sum())} "
+            f"detections, mask flips {flips:.2e} (tol {TINY_MASK_FLIPS}); K4 {k4} launches (expect {per_call})"
+        )
+        check(box_err <= TINY_GDINO_BOX_ATOL, "tiny GroundingDINO pipeline boxes differ between card and CPU")
+        check(torch.equal(gv.cpu(), wv) and torch.equal(gc.cpu(), wc), "tiny GroundingDINO pipeline valid/cls")
+        check(flips <= TINY_MASK_FLIPS, "tiny GroundingDINO pipeline masks differ between card and CPU")
+        check(k4 == per_call, "tiny GroundingDINO: one K4 launch per deformable attention")
+
+
+# --- phase 15 ----------------------------------------------------------------
+def build_gdino_path():
+    """GroundingDINO SwinT-OGC at full width (``GroundingDinoConfig()``),
+    random weights from seed 0 cast to bf16 with the JAX rule, behind the
+    pipeline adapter at 800 px."""
+    gd = GroundingDinoDetector.init_random(GroundingDinoConfig(), seed=0, device=DEV)
+    cast_for_serving(gd.module)
+    return gd, GroundingDinoQueryAdapter(gd, image_size=800)
+
+
+def phase_gdino_path(cfg, adapter, owl, sam, rgb) -> dict:
+    b, h, w = rgb.shape[:3]
+    k, cap = cfg.max_detections_per_frame, cfg.sam_frame_capacity
+    per_pass = chain_launches(sam.cfg.tinyvit)
+    coco = CocoDetector(owl, encode_queries, conf_threshold=cfg.coco_threshold, max_detections=k)
+    pipe = make_gdino_pipeline(adapter, sam, cfg, cap, coco)
+    pipe0 = make_gdino_pipeline(adapter, sam, cfg, cap, coco, non_coco_threshold=0.0)
+    runs = [(f"{OPEN_TARGET} at threshold {cfg.non_coco_threshold}", pipe, OPEN_TARGET),
+            (f"{OPEN_TARGET} at threshold 0", pipe0, OPEN_TARGET),
+            (f"{COCO_TARGET} (COCO route, then the GroundingDINO retry)", pipe, COCO_TARGET)]
+    deform_gather.launches = layer_norm.launches = mbconv_chain.launches = 0
+    t0 = time.perf_counter()
+    outs, counts = [], []
+    for _, p, target in runs:
+        before = (deform_gather.launches, layer_norm.launches, mbconv_chain.launches)
+        outs.append(p(rgb, target))
+        torch.cuda.synchronize()
+        counts.append([n - n0 for n, n0 in zip((deform_gather.launches, layer_norm.launches, mbconv_chain.launches),
+                                                before)])
+    wall = time.perf_counter() - t0
+    launches = dict(deform_gather=deform_gather.launches, layer_norm=layer_norm.launches,
+                    mbconv_chain=mbconv_chain.launches)
+
+    _, _, _, coco_valid = pipe._coco_path(rgb, COCO_TARGET)
+    hit = coco_valid.any(dim=1)
+    toilet = COCO_CLASSES.index(COCO_TARGET)
+    for (name, _, target), out, (k4, k1, k2) in zip(runs, outs, counts):
+        is_coco = target == COCO_TARGET
+        frames = check_detections(name, out, b, h, w, k, 80 if is_coco else len(target.split("|")))
+        passes = -(-frames // cap)
+        _, valid, (_, scores, cls) = out
+        log(
+            f"[gdino] {name}: {int(valid.sum())} detections on {frames} of {b} frames, {passes} SAM passes, "
+            f"top score {float(scores.max()):.4f}; K4 {k4} (expect {K4_PER_DETECT}), "
+            f"K1 {k1} (expect {LAUNCHES_DETECT if is_coco else 0}), K2 {k2} (expect {per_pass * passes})"
+        )
+        check(k4 == K4_PER_DETECT, f"{name}: K4 launch count")
+        check(k1 == (LAUNCHES_DETECT if is_coco else 0), f"{name}: K1 launch count")
+        check(k2 == per_pass * passes, f"{name}: K2 launches per SAM pass")
+        if is_coco:
+            # COCO-route frames carry COCO ids; the retried frames, caption phrase 0.
+            want_cls = torch.where(hit[:, None], toilet, 0).expand_as(cls)
+            check(bool((cls == want_cls)[valid].all()), f"{name}: class ids by route")
+            log(f"[gdino] {COCO_TARGET}: the COCO route hit {int(hit.sum())} of {b} frames, the rest took "
+                f"GroundingDINO's answer")
+    check(check_detections("threshold 0", outs[1], b, h, w, k, 1) == b, "threshold 0 must put detections on every frame")
+    log(f"[gdino] wall {wall:.2f} s for the three calls, first calls included")
+    return launches
+
+
+# --- phase 16 ----------------------------------------------------------------
+def device_events(prof):
+    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def busy_ms(events) -> float:
+    """Union of the device events' intervals, so overlaps count once."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    total, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                total += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        total += cur_e - cur_s
+    return total / 1e3
+
+
+K4_KERNEL = "deform_gather_kernel<"  # csrc/deform_gather.cu's kernel template
+
+
+def phase_gdino_timing(cfg, adapter, sam, rgb, smi: str) -> None:
+    pipe = make_gdino_pipeline(adapter, sam, cfg, cfg.sam_frame_capacity)
+    ids, mask = pipe._queries(OPEN_TARGET)
+    imgs = adapter.preprocess(rgb)
+    detect_ms = wall_ms(lambda: adapter.detect(imgs, ids, mask))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        adapter.detect(imgs, ids, mask)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = device_events(prof)
+    dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    k4 = [e for e in dev if K4_KERNEL in e.name]
+    k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3
+    busy = busy_ms(dev)
+    log(
+        f"[gdino-time] B={rgb.shape[0]} GroundingDINO detect: {detect_ms:.2f} ms (wall, median of 10); under "
+        f"torch.profiler {wall:.2f} ms wall, {dev_ms:.2f} ms of device time in {len(dev)} device events "
+        f"(idle share {1 - busy / wall:.3f}), K4 {len(k4)} launches {k4_ms:.2f} ms "
+        f"({k4_ms / max(dev_ms, 1e-9):.3f} of the device time); on {smi}"
+    )
+    check(len(k4) == K4_PER_DETECT, "the profiler saw one K4 launch per deformable attention")
+    ms = wall_ms(lambda: pipe(rgb, OPEN_TARGET))
+    log(f"[gdino-time] B={rgb.shape[0]} pipeline call ({OPEN_TARGET}, GroundingDINO, gated SAM): {ms:.2f} ms "
+        f"(wall, median of 10) on {smi}")
+
+
 def build_main_path():
     """The full-width configuration of phase 6: policy config, map grid,
     the perception engine with random bf16 weights, and the spin's views."""
@@ -781,17 +1071,31 @@ def main() -> None:
     det_run = phase_detection_path(det_cfg, det, sam, rgb)
     phase_detection_timing(det_cfg, det, sam, rgb, smi)
 
+    k4 = phase_deform_gather()
+    phase_tiny_gdino_pipeline()
+    gd, adapter = build_gdino_path()
+    n_gd = sum(p.numel() for p in gd.module.parameters())
+    log(f"[gdino] GroundingDINO SwinT-OGC (Swin-T 800 px, BERT-base, 900 queries, 256 tokens): "
+        f"{n_gd / 1e6:.1f} M parameters, bf16 weights")
+    gdino_run = phase_gdino_path(det_cfg, adapter, det, sam, rgb)
+    phase_gdino_timing(det_cfg, adapter, sam, rgb, smi)
+
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
     check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
     check(det_run["layer_norm"] > 0, "the detection path launched no layer_norm kernel")
     check(det_run["mbconv_chain"] > 0, "the detection path launched no mbconv_chain kernel")
+    check(gdino_run["deform_gather"] > 0, "the GroundingDINO path launched no deform_gather kernel")
+    check(gdino_run["mbconv_chain"] > 0, "the GroundingDINO path launched no mbconv_chain kernel")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
-                          {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"]}, ln),
+                          {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
+                           "gdino_detection": gdino_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
-                          {"detection": det_run["mbconv_chain"]}, k2),
+                          {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55", {"itm_spin": main_run["attention"]}, k3),
+            kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
+                          {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]
     }
     print(json.dumps(record), flush=True)

@@ -1,6 +1,6 @@
 """Where the time of vlfm_tpu_torch's main path goes on one NVIDIA GPU.
 
-    python3 scripts/profile_torch_step.py [--table PATH]
+    python3 scripts/profile_torch_step.py [--gdino] [--table PATH]
 
 Builds the configuration of ``chip_smoke.py`` phase 6 (full-width
 BLIP2-ITM with random bf16 weights, the default maps, the 12-view spin) and
@@ -21,6 +21,13 @@ measures, with TF32 off:
      method over 3 calls after 2 warm-ups, device time per call by ATen op,
      K1's and K2's launches and device time, and the device's busy time and
      idle share over one call.
+With ``--gdino`` it measures instead the GroundingDINO path of
+``chip_smoke.py`` phases 15-16 (GroundingDINO SwinT-OGC at full width, bf16
+weights, behind the pipeline adapter at 800 px): one detect call at B=8 on
+the 8 spin frames under the profiler, 3 calls after 2 warm-ups, its device
+time by ATen op and by kernel (K4's launches and device time among them),
+and the device's busy time and idle share over one call; then one pipeline
+call (GroundingDINO, gated MobileSAM) the same way.
 ``--table`` writes the full per-op and per-kernel tables to PATH. Imports
 only the port, never jax.
 """
@@ -34,7 +41,6 @@ import time
 
 import numpy as np
 import torch
-from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -42,6 +48,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke as S  # noqa: E402
 from vlfm_tpu_torch.ops.attention import attention  # noqa: E402
 from vlfm_tpu_torch.ops.conv_fused import mbconv_chain  # noqa: E402
+from vlfm_tpu_torch.ops.deform_gather import deform_gather  # noqa: E402
 from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
 from vlfm_tpu_torch.policy.itm import fuse_view  # noqa: E402
 
@@ -50,24 +57,7 @@ K3_KERNEL = "attention_kernel<"  # csrc/attention.cu's kernel template
 K2_KERNELS = ("chain_tc<", "chain_simt<")  # csrc/mbconv_chain.cu's two bodies
 
 
-def device_events(prof):
-    return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-
-def busy_ms(events) -> float:
-    """Union of the device events' intervals, so overlaps count once."""
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    total, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total / 1e3
+device_events, busy_ms = S.device_events, S.busy_ms
 
 
 def op_table(prof, calls: int, top: int) -> list[tuple[str, float, int]]:
@@ -80,16 +70,83 @@ def op_table(prof, calls: int, top: int) -> list[tuple[str, float, int]]:
     return sorted(rows, key=lambda r: -r[1])[:top]
 
 
+def kernel_table(events, calls: int, top: int) -> list[tuple[str, float, int]]:
+    """(kernel, device ms per call, launches per call), largest first."""
+    by_name: dict[str, list[float]] = {}
+    for e in events:
+        by_name.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    rows = [(name, sum(ts) / calls, len(ts) // calls) for name, ts in by_name.items()]
+    return sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def profile_calls(fn, calls: int, warmup: int):
+    """``calls`` calls of ``fn`` under the profiler after ``warmup`` calls:
+    (profiler, device events, wall ms per call)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / calls
+    return prof, device_events(prof), wall
+
+
+def gdino_breakdown(smi: str, tables: list) -> None:
+    det_cfg, _, sam, rgb = S.build_detection_path()
+    _, adapter = S.build_gdino_path()
+    pipe = S.make_gdino_pipeline(adapter, sam, det_cfg, det_cfg.sam_frame_capacity)
+    ids, mask = pipe._queries(S.OPEN_TARGET)
+    imgs = adapter.preprocess(rgb)
+    calls = 3
+    for label, fn in ((f"GroundingDINO detect B={rgb.shape[0]}", lambda: adapter.detect(imgs, ids, mask)),
+                      (f"pipeline call B={rgb.shape[0]} ({S.OPEN_TARGET}, GroundingDINO, gated SAM)",
+                       lambda: pipe(rgb, S.OPEN_TARGET))):
+        k40 = deform_gather.launches
+        prof, dev, wall = profile_calls(fn, calls, warmup=2)
+        dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
+        k4 = [e for e in dev if S.K4_KERNEL in e.name]
+        k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3 / calls
+        print(f"[gdino-profile] {label}, {calls} calls on {smi}: {wall:.2f} ms wall and {dev_ms:.2f} ms of "
+              f"device time per call; K4 {len(k4) // calls} launches per call "
+              f"({(deform_gather.launches - k40) // (calls + 2)} by the wrapper's count), {k4_ms:.3f} ms, "
+              f"{k4_ms / max(dev_ms, 1e-9):.3f} of the device time")
+        print("  by ATen op:")
+        for name, ms, n in op_table(prof, calls, top=14):
+            print(f"    {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
+        print("  by kernel:")
+        for name, ms, n in kernel_table(dev, calls, top=12):
+            print(f"    {name[:90]:90s} {ms:8.3f} ms  {n:5d} launches per call")
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as one:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall1 = (time.perf_counter() - t0) * 1e3
+        dev1 = device_events(one)
+        busy = busy_ms(dev1)
+        print(f"  one call under the profiler: {wall1:.2f} ms wall, device busy {busy:.2f} ms in {len(dev1)} "
+              f"device events, idle share {1 - busy / wall1:.3f}")
+        tables.append((label + ", by op", prof.key_averages().table(sort_by="self_device_time_total", row_limit=60)))
+
+
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--table", help="write the full profiler tables to this file")
+    ap.add_argument("--gdino", action="store_true", help="profile the GroundingDINO path only")
     args = ap.parse_args()
 
     smi = S.phase_device()
     S.phase_build()
+    tables = []
+    if args.gdino:
+        gdino_breakdown(smi, tables)
+        write_tables(args.table, smi, tables)
+        return
     cfg, spec, engine, views = S.build_main_path()
     itm = engine.itm
-    tables = []
 
     # 1. ITM scoring at B=32.
     calls = 3
@@ -200,12 +257,16 @@ def main() -> None:
         f"{len(dev)} device events, idle share {1 - busy / wall:.3f}"
     )
 
-    if args.table:
-        with open(args.table, "w") as f:
+    write_tables(args.table, smi, tables)
+
+
+def write_tables(path, smi: str, tables: list) -> None:
+    if path:
+        with open(path, "w") as f:
             f.write(smi + "\n")
             for title, table in tables:
                 f.write(f"\n== {title}\n{table}\n")
-        print(f"tables written to {args.table}")
+        print(f"tables written to {path}")
 
 
 if __name__ == "__main__":

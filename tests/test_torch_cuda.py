@@ -19,9 +19,11 @@ from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models import grounding_dino as GD
 from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.ops import attention as A
+from vlfm_tpu_torch.ops import deform_gather as DG
 from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.policy import itm as ITM
@@ -331,3 +333,91 @@ def test_obstacle_map_card_matches_cpu(dev):
         assert int((getattr(got, name).cpu() != getattr(want, name)).sum()) <= 1e-3 * 6 * 224 * 224, name
     assert torch.equal(got.frontiers_valid.cpu(), want.frontiers_valid)
     torch.testing.assert_close(got.frontiers_xy.cpu(), want.frontiers_xy, atol=0.1, rtol=0)
+
+
+def _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, spread=1.5, far=0.0, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    s = sum(h * w for h, w in shapes)
+    value = torch.randn(b, s, nh * dh, generator=gen, device=dev).to(vdtype)
+    grids = (torch.rand(b, q, nh, len(shapes), npts, 2, generator=gen, device=dev) * 2 - 1) * spread
+    if far:
+        pick = torch.rand(grids.shape, generator=gen, device=dev) < far
+        sign = torch.where(torch.rand(grids.shape, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+        grids = torch.where(pick, sign * 1e6, grids)
+    logits = torch.randn(b, q, nh, len(shapes) * npts, generator=gen, device=dev)
+    weights = torch.softmax(logits, -1).reshape(b, q, nh, len(shapes), npts).to(wdtype)
+    return value, grids, weights
+
+
+@pytest.mark.parametrize("b,q,nh,dh,shapes,npts,vdtype,wdtype,far", [
+    (2, 1200, 8, 32, ((40, 40), (20, 20), (10, 10), (5, 5)), 4, torch.float32, torch.float32, 0.0),  # encoder-like
+    (2, 900, 8, 32, ((40, 40), (20, 20), (10, 10), (5, 5)), 4, torch.bfloat16, torch.float32, 0.05),
+    (1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, 0.2),  # the CPU tests' ragged shape
+    (1, 33, 3, 40, ((6, 11),), 2, torch.bfloat16, torch.bfloat16, 0.0),            # dh over one warp
+    (1, 5, 1, 128, ((3, 4), (2, 2)), 20, torch.float32, torch.bfloat16, 0.1),       # widest head, 40 samples
+])
+def test_deform_gather_kernel_matches_plain(dev, b, q, nh, dh, shapes, npts, vdtype, wdtype, far):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    value, grids, weights = _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, far=far)
+    before = DG.deform_gather.launches
+    got = DG.deform_gather(value, shapes, grids, weights)
+    torch.cuda.synchronize()
+    assert DG.deform_gather.launches == before + 1
+    want = DG.deform_gather_ref(value, shapes, grids, weights)
+    assert got.dtype == torch.float32 and got.shape == want.shape == (b, q, nh, dh)
+    err = float((got - want).abs().max())
+    assert err <= DG.deform_gather_tolerance(value, weights), err
+    again = DG.deform_gather(value, shapes, grids, weights)
+    assert torch.equal(again, got)  # one warp per output, a fixed order: bit-reproducible
+
+
+def test_deform_gather_on_the_card_never_takes_the_plain_version(dev, monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain version ran on CUDA tensors")
+
+    monkeypatch.setattr(DG, "deform_gather_ref", refuse)
+    shapes = ((4, 4),)
+    value, grids, weights = _deform_inputs(1, 3, 2, 8, shapes, 2, torch.float32, torch.float32, dev)
+    DG.deform_gather(value, shapes, grids, weights)
+    torch.cuda.synchronize()
+
+
+def test_deform_gather_wrapper_raises_instead_of_falling_back(dev):
+    shapes = ((4, 4), (2, 2))
+    value, grids, weights = _deform_inputs(1, 6, 2, 8, shapes, 2, torch.float32, torch.float32, dev)
+    before = DG.deform_gather.launches
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        DG.deform_gather(value.half(), shapes, grids, weights)
+    with pytest.raises(TypeError, match="float32 grids"):
+        DG.deform_gather(value, shapes, grids.bfloat16(), weights)
+    with pytest.raises(ValueError, match="is on cpu"):
+        DG.deform_gather(value, shapes, grids.cpu(), weights)
+    with pytest.raises(ValueError, match="contiguous"):
+        DG.deform_gather(torch.cat([value, value], -1)[..., :value.shape[-1]], shapes, grids, weights)
+    with pytest.raises(ValueError, match="does not hold"):
+        DG.deform_gather(value, ((4, 4), (2, 3)), grids, weights)
+    with pytest.raises(ValueError, match="levels"):
+        DG.deform_gather(value, shapes[:1], grids, weights)
+    with pytest.raises(ValueError, match="do not match"):
+        DG.deform_gather(value, shapes, grids, weights[:, :3])
+    assert DG.deform_gather.launches == before
+
+
+def test_tiny_grounding_dino_card_matches_cpu_and_counts_launches(dev):
+    """f32 tiny GroundingDINO on the card (K4 for its four deformable
+    attentions) against the same weights on the CPU."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = GD.GroundingDinoDetector.init_random(GD.GroundingDinoConfig.tiny_test(), seed=0, device="cpu")
+    gpu = GD.GroundingDinoDetector(cpu.cfg, copy.deepcopy(cpu.module).to(dev))
+    imgs = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64, 64, 3)).astype(np.float32))
+    ids, mask, _ = GD.build_caption_ids([np.array([5, 6]), np.array([7])], 16)
+    before = DG.deform_gather.launches
+    got_logits, got_boxes = gpu.predict(imgs.to(dev), ids, mask)
+    torch.cuda.synchronize()
+    assert DG.deform_gather.launches - before == GD.deformable_attentions(cpu.cfg) == 4
+    want_logits, want_boxes = cpu.predict(imgs, ids, mask)
+    finite = torch.isfinite(want_logits)
+    assert torch.equal(torch.isfinite(got_logits.cpu()), finite)
+    torch.testing.assert_close(got_logits.cpu()[finite], want_logits[finite], atol=1e-3, rtol=0)
+    torch.testing.assert_close(got_boxes.cpu(), want_boxes, atol=1e-4, rtol=0)

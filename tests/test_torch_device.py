@@ -14,6 +14,7 @@ from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.mapping import obstacle_map, value_map
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM
+from vlfm_tpu_torch.models.grounding_dino import GroundingDinoDetector
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetector
 from vlfm_tpu_torch.models.sam import SAM
 from vlfm_tpu_torch.policy import acyclic
@@ -25,6 +26,8 @@ CONSTRUCTORS = {
     "SAM.from_jax_params": SAM.from_jax_params,
     "OwlViTDetector.init_random": OwlViTDetector.init_random,
     "OwlViTDetector.from_jax_params": OwlViTDetector.from_jax_params,
+    "GroundingDinoDetector.init_random": GroundingDinoDetector.init_random,
+    "GroundingDinoDetector.from_jax_params": GroundingDinoDetector.from_jax_params,
     "value_map.create": value_map.create,
     "obstacle_map.create": obstacle_map.create,
     "obstacle_map.from_numpy": obstacle_map.from_numpy,

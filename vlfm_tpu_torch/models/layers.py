@@ -16,7 +16,7 @@ in ``ops/attention.py``); GELU is the exact erf form.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -85,6 +85,33 @@ class LayerNorm(Norm):
         return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype))
 
 
+class GroupNorm(Norm):
+    """Counterpart of flax's ``nn.GroupNorm`` over the channels (last axis)
+    of an NHWC map, statistics over (H, W, channels of the group): f32
+    statistics with flax's fast variance E[x^2] - E[x]^2 clipped at 0,
+    flax's default epsilon 1e-6, and ``(x - mean) * (rsqrt(var + eps) *
+    weight) + bias`` in f32. The result takes ``promote_types(x, weight,
+    bias)``, as in flax."""
+
+    def __init__(self, num_groups: int, dim: int, eps: float = 1e-6, *, device=None):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(dim, device=device))
+        self.bias = nn.Parameter(torch.zeros(dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c = x.shape[0], x.shape[-1]
+        xf = x.to(torch.float32)
+        xg = xf.reshape(b, -1, self.num_groups, c // self.num_groups)
+        mu = xg.mean(dim=(1, 3), keepdim=True)
+        var = ((xg * xg).mean(dim=(1, 3), keepdim=True) - mu * mu).clamp_min(0.0)
+        mu = mu.repeat_interleave(c // self.num_groups, dim=2).reshape(b, *([1] * (x.ndim - 2)), c)
+        var = var.repeat_interleave(c // self.num_groups, dim=2).reshape(b, *([1] * (x.ndim - 2)), c)
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight.to(torch.float32))
+        y = y + self.bias.to(torch.float32)
+        return y.to(torch.promote_types(torch.promote_types(x.dtype, self.weight.dtype), self.bias.dtype))
+
+
 class LayerNormF32(nn.Module):
     """LayerNorm computed in f32, cast back to the input dtype. Holds its norm
     as ``ln``, like the flax scope."""
@@ -95,6 +122,15 @@ class LayerNormF32(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.ln(x)
+
+
+def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """The tensors cast to their common promoted dtype, as ``jnp`` promotes
+    the operands of a product."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
 
 
 def attention(

@@ -23,14 +23,14 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Tuple
+from typing import Any, Mapping
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
-from vlfm_tpu_torch.models.layers import Dense, LayerNorm, Norm
+from vlfm_tpu_torch.models.layers import Dense, LayerNorm, Norm, promoted
 from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
 from vlfm_tpu_torch.models.tinyvit import TinyViT, TinyViTConfig
 
@@ -88,13 +88,6 @@ class SamConfig:
         )
 
 
-def _promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-    dt = ts[0].dtype
-    for t in ts[1:]:
-        dt = torch.promote_types(dt, t.dtype)
-    return tuple(t.to(dt) for t in ts)
-
-
 class LayerNorm2d(Norm):
     """SAM's channel-wise LayerNorm over NHWC maps. It normalizes in the
     input dtype (not f32), then ``x * weight + bias`` promotes, as the JAX
@@ -118,7 +111,7 @@ class SamPositionalEmbedding(nn.Module):
         self.gaussian = nn.Parameter(torch.zeros(2, pe_dim, device=device))
 
     def forward(self, coords01: torch.Tensor) -> torch.Tensor:  # (..., 2) in [0, 1]
-        c, g = _promoted(2 * coords01 - 1, self.gaussian)
+        c, g = promoted(2 * coords01 - 1, self.gaussian)
         proj = (2 * math.pi) * torch.matmul(c, g)
         return torch.cat([torch.sin(proj), torch.cos(proj)], dim=-1)
 
@@ -150,9 +143,9 @@ class DecoderAttention(nn.Module):
         return t.reshape(*t.shape[:-1], self.heads, t.shape[-1] // self.heads).transpose(-3, -2)
 
     def forward(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-        hq, hk = _promoted(self._split(self.q_proj(q)), self._split(self.k_proj(k)))
+        hq, hk = promoted(self._split(self.q_proj(q)), self._split(self.k_proj(k)))
         a = torch.matmul(hq, hk.transpose(-1, -2)) * (hq.shape[-1] ** -0.5)
-        p, hv = _promoted(torch.softmax(a.to(torch.float32), dim=-1).to(q.dtype), self._split(self.v_proj(v)))
+        p, hv = promoted(torch.softmax(a.to(torch.float32), dim=-1).to(q.dtype), self._split(self.v_proj(v)))
         o = torch.matmul(p, hv).transpose(-3, -2)
         return self.out_proj(o.reshape(*o.shape[:-2], -1))
 
@@ -247,7 +240,7 @@ class SamMaskDecoder(nn.Module):
         b, g1, g2, _ = image_embed.shape
         nb = sparse_prompt.shape[1]
         out_tokens = torch.cat([self.iou_token, self.mask_tokens], dim=0)  # (M+1, d)
-        out_tokens, sparse_prompt = _promoted(out_tokens, sparse_prompt)
+        out_tokens, sparse_prompt = promoted(out_tokens, sparse_prompt)
         tokens = torch.cat([out_tokens.expand(b, nb, m + 1, d), sparse_prompt], dim=2)  # (B, NB, T, d)
 
         src = image_embed.reshape(b, 1, g1 * g2, d).expand(b, nb, g1 * g2, d)
@@ -269,7 +262,7 @@ class SamMaskDecoder(nn.Module):
         # reduce channels first, then depth-to-space the thin masks:
         # out[4x+2p+r, 4y+2q+s] = packed[x, y, p, q, r, s]
         up = up.reshape(b, nb, g1, g2, 2, 2, 2, 2, d // 8)
-        hyper, up = _promoted(hyper, up)
+        hyper, up = promoted(hyper, up)
         masks = torch.einsum("bnmc,bnxypqrsc->bnmxpryqs", hyper, up).reshape(b, nb, m, 4 * g1, 4 * g2)
         return masks, self.iou_head(iou_out)
 

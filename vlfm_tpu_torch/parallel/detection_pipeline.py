@@ -4,6 +4,9 @@ Counterpart of ``vlfm_tpu/parallel/detection_pipeline.py``
 (``DetectionPipeline``; reference: BaseObjectNavPolicy._get_object_detections
 and _update_object_map, base_objectnav_policy.py:221-241, 311-335):
 
+- The open-vocabulary ``detector`` is OWL-ViT (``OwlViTDetector``) or
+  GroundingDINO through its query adapter (``GroundingDinoQueryAdapter``);
+  both have ``device``, ``preprocess`` and ``detect``.
 - COCO-class targets use the closed-vocabulary COCO route at
   ``coco_threshold`` (0.8); other targets use the open-vocabulary detector at
   ``non_coco_threshold`` (0.4). A COCO-route miss retries the
@@ -20,12 +23,13 @@ for it raises.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple, Union
 
 import torch
 
 from vlfm_tpu_torch.models.coco_classes import COCO_CLASSES, is_coco_target
 from vlfm_tpu_torch.models.coco_detector import CocoDetector
+from vlfm_tpu_torch.models.grounding_dino import GroundingDinoQueryAdapter
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetector, top_detections
 from vlfm_tpu_torch.models.sam import SAM
 from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
@@ -33,9 +37,9 @@ from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
 
 @dataclass
 class DetectionPipeline:
-    detector: OwlViTDetector
+    detector: Union[OwlViTDetector, GroundingDinoQueryAdapter]
     sam: SAM
-    encode_queries: Callable  # List[str] -> (ids (T, L) int, mask (T, L) bool)
+    encode_queries: Callable  # List[str] -> (ids (T, L) int, mask (T, L) bool); T = 1 for a caption
     coco_detector: Optional[CocoDetector] = None
     use_vqa: bool = False
     coco_threshold: float = 0.8
