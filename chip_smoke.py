@@ -10,9 +10,11 @@ Phases (any failure raises, and the script exits non-zero):
      shapes, with CUDA-event timings of both and of ``F.layer_norm``;
   3. attention kernel (K3) against its plain version: every variant at the
      ViT-g shape (32, 16, 257, 88) in bf16, the main path's layout (q, k, v
-     as views of the fused qkv projection), the CPU tests' ragged shapes in
-     f32 and a 1024-token case; CUDA-event timings of the kernel, the plain
-     version and ``scaled_dot_product_attention``, and the bound;
+     as views of the fused qkv projection) at B=32 and at the spin's 12
+     views, the CPU tests' ragged shapes in f32 and a 1024-token case, each
+     with the kernel body it took; CUDA-event timings of the kernel, the
+     plain version and ``scaled_dot_product_attention``, the bound, and the
+     replaced design's time (``PARENT_K3_MS``);
   4. tiny BLIP2-ITM: the same weights on the CPU (plain versions) and on
      the card (K1, K3) give the same cosines;
   5. tiny obstacle map: the same spin frames update a small map on the CPU
@@ -28,8 +30,9 @@ Phases (any failure raises, and the script exits non-zero):
   8. timings: full-width ITM scoring per 32-image batch, the spin step
      whole and its obstacle-map part alone;
   9. the MBConv chain kernel (K2) against its plain version at the detection
-     path's shapes and at the CPU tests' ragged ones, with CUDA-event
-     timings of both;
+     path's shapes and at the CPU tests' ragged ones, each with the kernel
+     body it took, with CUDA-event timings of both and the replaced design's
+     time (``PARENT_K2_MS``);
  10. tiny detection pipeline (OWL-ViT -> COCO route -> gated MobileSAM):
      the same weights on the CPU (plain versions) and on the card (K1, K2)
      give the same boxes, scores and validity, and masks within a flip
@@ -100,8 +103,8 @@ from vlfm_tpu_torch.models.precision import cast_for_serving
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
-from vlfm_tpu_torch.ops.attention import attention, attention_ref, attention_tolerance, qkv_views
-from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
+from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_ref, attention_tolerance, qkv_views
+from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops.resize import resize_bilinear
@@ -148,6 +151,7 @@ LAUNCHES_IMAGE = 110  # ViT-g 39 x 2 + post_ln, Q-Former 1 + 12 x 2 + 6 cross_ln
 ATTN_LAUNCHES_IMAGE = 39  # K3 once per ViT-g block; the Q-Former keeps plain attention
 ATTN_LAUNCHES_TEXT = 0
 ATTN_SHAPE = (32, 16, 257, 88)  # ViT-g at B=32: batch, heads, tokens, head width
+ATTN_SPIN_SHAPE = (12, 16, 257, 88)  # ViT-g at the spin's 12 views
 # (variant, the TPU kernels it stands for, arguments, K stored transposed)
 ATTN_VARIANTS = [
     ("max/probs", "K3a flash_attention_grouped, K3c flash_attention, diag_attn_core grouped",
@@ -166,6 +170,29 @@ ATTN_RAGGED = [
     ((2, 2, 64, 32), torch.float32), ((1, 16, 257, 88), torch.float32), ((2, 4, 130, 16), torch.float32),
     ((2, 4, 1024, 64), torch.bfloat16),
 ]
+# The K3 and K2 designs this version replaced (commit e23db96), timed by
+# that commit's chip_smoke.py on one card in one session with this
+# version's kernels; printed beside this version's times.
+PARENT_CARD = "commit e23db96 on an NVIDIA H100 80GB HBM3, 700 W"
+PARENT_K3_MS = {  # (case, shape) -> ms
+    ("max/probs, qkv views (the main path)", ATTN_SHAPE): 0.5001,
+    ("max/probs", ATTN_SHAPE): 0.4958,
+    ("max/output", ATTN_SHAPE): 0.4476,
+    ("clamp80/output/bf16-logits", ATTN_SHAPE): 0.3298,
+    ("clamp60/output, K transposed", ATTN_SHAPE): 0.8987,
+    ("clamp60/output/bf16-logits, K transposed", ATTN_SHAPE): 0.9022,
+    ("max/probs", (2, 2, 64, 32)): 0.0342,
+    ("clamp60/output, K transposed", (2, 2, 64, 32)): 0.0307,
+    ("max/probs", (1, 16, 257, 88)): 0.1937,
+    ("clamp60/output, K transposed", (1, 16, 257, 88)): 0.1764,
+    ("max/probs", (2, 4, 130, 16)): 0.0597,
+    ("clamp60/output, K transposed", (2, 4, 130, 16)): 0.0502,
+    ("max/probs", (2, 4, 1024, 64)): 0.1723,
+}
+PARENT_K2_MS = {  # shape -> ms
+    (8, 256, 256, 64): 2.4812, (2, 256, 256, 64): 0.6331, (8, 64, 64, 160): 0.6191, (2, 64, 64, 160): 0.1584,
+    (2, 7, 9, 8): 0.0152, (1, 5, 11, 8): 0.0156,
+}
 TINY_MAP = dict(map_size=256, map_pad=64, width=160, height=120, views=6)
 MAP_FLIPS = 1e-3  # cone-edge cells: atan2/cos differ in the last ulp between devices
 FRONTIER_ATOL_M = 0.1  # two cells
@@ -350,7 +377,9 @@ def attention_bound(shape, dtype) -> tuple[float, str]:
 
 def phase_attention() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
-    cases = [("max/probs, qkv views (the main path)", ATTN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2], "qkv")]
+    cases = [("max/probs, qkv views (the main path)", ATTN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2], "qkv"),
+             ("max/probs, qkv views (the spin's 12 views)", ATTN_SPIN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2],
+              "qkv")]
     cases += [(name, ATTN_SHAPE, torch.bfloat16, kw, "kt" if kt else "") for name, _, kw, kt in ATTN_VARIANTS]
     for shape, dt in ATTN_RAGGED:
         variants = ATTN_VARIANTS[:1] if dt == torch.bfloat16 else (ATTN_VARIANTS[0], ATTN_VARIANTS[3])
@@ -360,6 +389,7 @@ def phase_attention() -> dict:
         q, k, v = attention_inputs(shape, dt, gen, layout)
         got = attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        body = attention_plan(q, k, v, got).describe()
         want = attention_ref(q, k, v, **kw)
         check(got.shape == want.shape and got.dtype == want.dtype, f"K3 {name} {shape} shape/dtype")
         err = (got.float() - want.float()).abs()
@@ -370,11 +400,13 @@ def phase_attention() -> dict:
         library_ms = _median_ms(lambda: F.scaled_dot_product_attention(q, k, v))
         bound_ms, bound_by = attention_bound(shape, dt)
         tol = "2e-5" if dt == torch.float32 else "2e-2" if kw.get("round_logits") else "2 bf16 ulps of plain, floor 4e-3"
+        parent = PARENT_K3_MS.get((name, shape))
         log(
-            f"[attention] {shape} {str(dt).split('.')[-1]} {name}: max_abs_err={max_abs:.3e}, {ratio:.2f} of "
-            f"the tolerance ({tol}) "
+            f"[attention] {shape} {str(dt).split('.')[-1]} {name} ({body}): max_abs_err={max_abs:.3e}, "
+            f"{ratio:.2f} of the tolerance ({tol}) "
             f"{'ok' if ratio <= 1 else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"sdpa {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+            + (f", the parent's kernel {parent:.4f} ms ({PARENT_CARD})" if parent else "")
         )
         check(ratio <= 1.0, f"attention {name} {shape} {dt} disagrees with its plain version")
         rows_out.append(dict(name=name, shape=shape, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
@@ -623,12 +655,14 @@ def phase_mbconv_chain() -> dict:
         n_bytes = (x.numel() + pixels * cout) * x.element_size() + sum(t.numel() * t.element_size() for t in w)
         bound_ms, bound_by = bound(n_bytes, 2 * pixels * (shape[-1] * ch + 9 * ch + ch * cout), dt)
         tol = "1e-5 relative" if dt == torch.float32 else "2 bf16 ulps of plain, floor 4e-3"
+        parent = PARENT_K2_MS.get(shape)
         log(
             f"[mbconv_chain] {shape}->{ch}->{cout} {str(dt).split('.')[-1]} res={res} "
-            f"({kernel_route(x, w[0], w[4], got)}): max_abs_err={max_abs:.3e}, {ratio:.2f} of the "
+            f"({chain_plan(x, *w[:5], got).body}): max_abs_err={max_abs:.3e}, {ratio:.2f} of the "
             f"tolerance ({tol}), {float((err > 0).float().mean()):.2e} of elements differ "
             f"{'ok' if ratio <= 1 else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"bound {bound_ms:.4f} ms ({bound_by}); no single PyTorch call computes the chain"
+            + (f"; the parent's kernel {parent:.4f} ms ({PARENT_CARD})" if parent else "")
         )
         check(ratio <= 1.0, f"mbconv_chain {shape} {dt} disagrees with its plain version")
         rows_out.append(dict(shape=shape, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,

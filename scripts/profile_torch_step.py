@@ -53,7 +53,7 @@ from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
 from vlfm_tpu_torch.policy.itm import fuse_view  # noqa: E402
 
 LN_KERNEL = "layer_norm_kernel<"  # csrc/layer_norm.cu's kernel template
-K3_KERNEL = "attention_kernel<"  # csrc/attention.cu's kernel template
+K3_KERNELS = ("attention_whole<", "attention_stream<", "attention_f32<")  # csrc/attention*.cu's three bodies
 K2_KERNELS = ("chain_tc<", "chain_simt<")  # csrc/mbconv_chain.cu's two bodies
 
 
@@ -166,9 +166,9 @@ def main() -> None:
     print(f"[itm-profile] B=32, {calls} calls on {smi}: {dev_ms:.2f} ms of device time per call")
     for name, ms, n in op_table(prof, calls, top=12):
         print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
-    for label, kernel, wrapper in (("LayerNorm kernel (K1)", LN_KERNEL, layer_norm.launches - ln0),
-                                   ("attention kernel (K3)", K3_KERNEL, attention.launches - k30)):
-        ks = [e for e in dev if kernel in e.name]
+    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), layer_norm.launches - ln0),
+                                  ("attention kernel (K3)", K3_KERNELS, attention.launches - k30)):
+        ks = [e for e in dev if any(n in e.name for n in names)]
         ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls
         n = len(ks) // calls
         print(f"  {label}: {n} launches per call ({wrapper // calls} by the wrapper's count), "

@@ -35,7 +35,7 @@ from vlfm_tpu.models import layers as JL
 from vlfm_tpu.ops import attention as JA
 from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads, split_heads
 from vlfm_tpu_torch.models.layers import attention as plain_attention
-from vlfm_tpu_torch.ops.attention import attention, attention_ref, qkv_views
+from vlfm_tpu_torch.ops.attention import WHOLE_HEAD_KEYS, attention, attention_plan, attention_ref, qkv_views
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 2, 64, 32), (1, 16, 257, 88), (2, 4, 130, 16)]
@@ -193,3 +193,59 @@ def test_bad_variant_raises():
     q = torch.zeros((1, 1, 4, 8))
     with pytest.raises(ValueError, match="normalize"):
         attention_ref(q, q, q, normalize="rows")
+
+
+def _plan(shape, dtype=torch.bfloat16, layout=""):
+    """The kernel's launch plan for zero tensors of this shape and layout,
+    on the CPU: the plan reads shapes, strides and pointers only."""
+    b, h, l, d = shape
+    if layout == "qkv":
+        q, k, v = qkv_views(torch.zeros(b, l, 3 * h * d, dtype=dtype), h)
+    else:
+        q, k, v = (torch.zeros(shape, dtype=dtype) for _ in range(3))
+        if layout == "kt":
+            k = k.transpose(-1, -2).contiguous().transpose(-1, -2)
+    out = torch.empty((b, l, h, d), dtype=dtype).permute(0, 2, 1, 3)  # the wrapper's output layout
+    return attention_plan(q, k, v, out)
+
+
+@pytest.mark.parametrize("shape,dtype,layout,body,grid,smem", [
+    # ViT-g at B=32 and at the spin's 12 views: one block per head, K and V
+    # whole (2 x 272 keys x (96 + 8) x 2 B)
+    ((32, 16, 257, 88), torch.bfloat16, "qkv", "whole-head", (1, 512), 113152),
+    ((12, 16, 257, 88), torch.bfloat16, "qkv", "whole-head", (1, 192), 113152),
+    # K stored transposed: a [D][keys] tile of 96 x (272 + 8); odd L copies element by element
+    ((2, 16, 257, 88), torch.bfloat16, "kt", "whole-head, K^T tile, element loads of k", (1, 32), 110336),
+    ((2, 16, 256, 88), torch.bfloat16, "kt", "whole-head, K^T tile", (1, 32), 110336),
+    # longer key axes: 64-query blocks, a 3-stage ring of 64-key K and V chunks
+    ((2, 4, 1024, 64), torch.bfloat16, "", "streaming", (16, 8), 3 * 2 * 2 * 64 * 72),
+    ((1, 2, 3000, 32), torch.bfloat16, "", "streaming", (47, 2), 3 * 2 * 2 * 64 * 40),
+    ((1, 2, 1024, 64), torch.bfloat16, "kt", "streaming, K^T tile", (16, 2), 3 * 2 * (64 * 72 + 64 * 72)),
+    # just over the whole-head limit: 19 query tiles in 5 blocks; far under it: one tile
+    ((1, 1, 300, 32), torch.bfloat16, "", "streaming", (5, 1), 3 * 2 * 2 * 64 * 40),
+    ((1, 3, 5, 8), torch.bfloat16, "", "whole-head", (1, 3), 2 * 2 * 272 * 40),  # D padded to 32
+    # f32: the CUDA-core body, 64-query blocks
+    ((1, 16, 257, 88), torch.float32, "", "f32", (5, 16), 4 * (192 * 104 + 64 * (68 + 72))),
+])
+def test_attention_plan_picks_body_grid_and_shared_memory(shape, dtype, layout, body, grid, smem):
+    plan = _plan(shape, dtype, layout)
+    assert (plan.describe(), plan.grid, plan.smem_bytes) == (body, grid, smem)
+
+
+def test_attention_plan_fits_two_whole_head_blocks_an_sm_and_fills_the_card():
+    """At ViT-g's 257 tokens: two blocks of 113 KB (each with the 1 KB the
+    runtime reserves) fit an H100 SM's 228 KB; 17 query tiles of 16 rows
+    make 257 of 272 rows useful; B=32 gives 512 blocks (two waves of 2 x
+    132) and the spin's 12 views 192, at least one on every SM."""
+    plan = _plan((32, 16, 257, 88), layout="qkv")
+    assert 2 * (plan.smem_bytes + 1024) <= 228 * 1024
+    assert plan.tiles_per_block == 17 and 257 / (16 * plan.tiles_per_block) > 0.94
+    assert plan.grid[0] * plan.grid[1] >= 2 * 132
+    spin = _plan((12, 16, 257, 88), layout="qkv")
+    assert spin.grid[0] * spin.grid[1] >= 132
+    assert plan.flags == spin.flags == 0b01111  # q, k, v copied 16 bytes at a time; o stored in pairs
+
+
+def test_attention_plan_whole_head_limit():
+    assert _plan((1, 1, WHOLE_HEAD_KEYS, 64)).body == "whole-head"
+    assert _plan((1, 1, WHOLE_HEAD_KEYS + 1, 64)).body == "streaming"

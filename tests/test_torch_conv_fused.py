@@ -19,7 +19,7 @@ from vlfm_tpu.models import tinyvit as JT
 from vlfm_tpu.ops import conv_fused as JC
 from vlfm_tpu_torch.models import tinyvit as T
 from vlfm_tpu_torch.models.params import state_dict_from_jax_params
-from vlfm_tpu_torch.ops.conv_fused import mbconv_chain, mbconv_chain_ref
+from vlfm_tpu_torch.ops.conv_fused import chain_plan, mbconv_chain, mbconv_chain_ref
 
 PALLAS_ATOL, PALLAS_RTOL = 2e-3, 1e-3
 FLAX_ATOL = 1e-5
@@ -141,3 +141,41 @@ def test_patch_embed_matches_flax_and_s2d(hw):
     assert got.shape == (2, hw[0] // 4, hw[1] // 4, 8)
     np.testing.assert_allclose(got, np.asarray(want_flax), atol=FLAX_ATOL, rtol=FLAX_ATOL)
     np.testing.assert_allclose(got, np.asarray(want_s2d), atol=PALLAS_ATOL, rtol=PALLAS_RTOL)
+
+
+def _chain_tensors(shape, ch, cout, dtype):
+    cin = shape[-1]
+    w = (torch.zeros(cin, ch, dtype=dtype), torch.zeros(ch), torch.zeros(3, 3, ch, dtype=dtype),
+         torch.zeros(ch), torch.zeros(ch, cout, dtype=dtype))
+    return torch.zeros(shape, dtype=dtype), w, torch.empty(*shape[:3], cout, dtype=dtype)
+
+
+@pytest.mark.parametrize("shape,ch,cout,dtype,body,grid,smem", [
+    # stage 0: 16 x 16 tiles (324 halo pixels for 256 outputs), 185 KB, one block an SM
+    ((8, 256, 256, 64), 256, 64, torch.bfloat16, "tensor-core 16x16", (16, 16, 8), 185344),
+    ((2, 256, 256, 64), 256, 64, torch.bfloat16, "tensor-core 16x16", (16, 16, 2), 185344),
+    # the merge: Cout 320 takes 4 x 16 tiles
+    ((2, 64, 64, 160), 320, 320, torch.bfloat16, "tensor-core 4x16", (4, 16, 2), 203264),
+    ((1, 37, 45, 64), 256, 64, torch.bfloat16, "tensor-core 16x16", (3, 3, 1), 185344),
+    ((1, 13, 21, 32), 64, 32, torch.bfloat16, "tensor-core 16x16", (2, 1, 1), 146432),
+    # f32, narrow or ragged channels, Ch not a multiple of 64, Cout over 320: CUDA cores
+    ((2, 7, 9, 8), 16, 8, torch.bfloat16, "simt", (2, 1, 2), 4 * (100 * 8 + 100 * 32 + 64 * (32 + 8))),
+    ((1, 64, 64, 160), 320, 320, torch.float32, "simt", (8, 8, 1), 4 * (100 * 160 + 100 * 32 + 64 * (32 + 320))),
+    ((1, 8, 8, 64), 96, 64, torch.bfloat16, "simt", (1, 1, 1), 4 * (100 * 64 + 100 * 32 + 64 * (32 + 64))),
+    ((1, 8, 8, 64), 64, 352, torch.bfloat16, "simt", (1, 1, 1), 4 * (100 * 64 + 100 * 32 + 64 * (32 + 352))),
+])
+def test_chain_plan_picks_body_grid_and_shared_memory(shape, ch, cout, dtype, body, grid, smem):
+    x, w, out = _chain_tensors(shape, ch, cout, dtype)
+    plan = chain_plan(x, *w, out)
+    assert (plan.body, plan.grid, plan.smem_bytes) == (body, grid, smem)
+
+
+def test_chain_plan_unaligned_pointer_takes_simt_and_oversize_raises():
+    x, w, out = _chain_tensors((1, 16, 16, 64), 128, 64, torch.bfloat16)
+    assert chain_plan(x, *w, out).body == "tensor-core 16x16"
+    shifted = torch.zeros(x.numel() + 4, dtype=x.dtype)[4:].view(x.shape)  # 8 bytes past a boundary
+    assert chain_plan(shifted, *w, out).body == "simt"
+    with pytest.raises(ValueError, match="shared memory"):
+        x, w, out = _chain_tensors((1, 8, 8, 600), 64, 64, torch.float32)
+        chain_plan(x, *w, out)
+

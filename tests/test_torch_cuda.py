@@ -24,7 +24,7 @@ from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.ops import attention as A
 from vlfm_tpu_torch.ops import deform_gather as DG
-from vlfm_tpu_torch.ops.conv_fused import chain_tolerance, kernel_route, mbconv_chain, mbconv_chain_ref
+from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
@@ -149,29 +149,68 @@ def chain_inputs(shape, ch, cout, dtype, dev, seed=0):
     return x, w
 
 
+def _check_chain(x, w, residual, body):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    before = mbconv_chain.launches
+    got = mbconv_chain(x, *w, residual=residual, final_gelu=residual)
+    torch.cuda.synchronize()
+    assert mbconv_chain.launches == before + 1
+    assert chain_plan(x, w[0], w[1], w[2], w[3], w[4], got).body == body
+    want = mbconv_chain_ref(x, *w, residual=residual, final_gelu=residual)
+    assert got.dtype == x.dtype and got.shape == want.shape == (*x.shape[:3], w[4].shape[1])
+    err = (got.float() - want.float()).abs()
+    ratio = float((err / chain_tolerance(want)).max())
+    assert ratio <= 1.0, f"max err {float(err.max()):.3e}, {ratio:.2f} of the tolerance"
+
+
 @pytest.mark.parametrize("shape,ch,cout,residual,dtype,route", [
-    ((2, 256, 256, 64), 256, 64, True, torch.bfloat16, "tensor-core"),   # stage-0 MBConv
-    ((2, 64, 64, 160), 320, 320, False, torch.bfloat16, "tensor-core"),  # merge into stage 3
-    ((1, 13, 21, 32), 64, 32, True, torch.bfloat16, "tensor-core"),      # ragged H and W
-    ((2, 7, 9, 8), 16, 8, True, torch.bfloat16, "simt"),                 # narrow channels
+    ((2, 256, 256, 64), 256, 64, True, torch.bfloat16, "tensor-core 16x16"),  # stage-0 MBConv
+    ((2, 64, 64, 160), 320, 320, False, torch.bfloat16, "tensor-core 4x16"),  # merge into stage 3
+    ((1, 13, 21, 32), 64, 32, True, torch.bfloat16, "tensor-core 16x16"),     # ragged H and W
+    ((2, 7, 9, 8), 16, 8, True, torch.bfloat16, "simt"),                      # narrow channels
     ((2, 7, 9, 8), 16, 8, True, torch.float32, "simt"),
     ((1, 5, 11, 8), 16, 16, False, torch.float32, "simt"),
     ((1, 64, 64, 160), 320, 320, False, torch.float32, "simt"),
 ])
 def test_mbconv_chain_kernel_matches_plain(dev, shape, ch, cout, residual, dtype, route):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     x, w = chain_inputs(shape, ch, cout, dtype, dev)
-    before = mbconv_chain.launches
-    got = mbconv_chain(x, *w, residual=residual, final_gelu=residual)
-    torch.cuda.synchronize()
-    assert mbconv_chain.launches == before + 1
-    assert kernel_route(x, w[0], w[4], got) == route
-    want = mbconv_chain_ref(x, *w, residual=residual, final_gelu=residual)
-    assert got.dtype == dtype and got.shape == want.shape == (*shape[:3], cout)
-    err = (got.float() - want.float()).abs()
-    ratio = float((err / chain_tolerance(want)).max())
-    assert ratio <= 1.0, f"max err {float(err.max()):.3e}, {ratio:.2f} of the tolerance"
+    _check_chain(x, w, residual, route)
+
+
+@pytest.mark.parametrize("b", [1, 2, 8])
+@pytest.mark.parametrize("shape,ch,cout,residual,body", [
+    ((256, 256, 64), 256, 64, True, "tensor-core 16x16"),   # stage 0
+    ((64, 64, 160), 320, 320, False, "tensor-core 4x16"),   # the merge
+    ((37, 45, 64), 256, 64, True, "tensor-core 16x16"),     # H and W not multiples of 16
+    ((21, 19, 160), 320, 320, False, "tensor-core 4x16"),   # H not a multiple of 4, W not of 16
+    ((9, 11, 32), 64, 96, False, "tensor-core 4x16"),       # a narrower wide Cout, one chunk
+    ((17, 5, 16), 128, 48, False, "tensor-core 16x16"),     # Cout 48, narrower than a tile
+])
+def test_mbconv_chain_tensor_core_bodies_at_their_edges(dev, b, shape, ch, cout, residual, body):
+    x, w = chain_inputs((b, *shape), ch, cout, torch.bfloat16, dev, seed=b)
+    _check_chain(x, w, residual, body)
+
+
+@pytest.mark.parametrize("which", ["x", "w1", "w3"])
+def test_mbconv_chain_unaligned_pointer_takes_simt(dev, which):
+    """A tensor that does not start on a 16-byte boundary cannot be copied
+    by cp.async: the call takes the CUDA-core body."""
+    x, w = chain_inputs((2, 20, 24, 64), 256, 64, torch.bfloat16, dev)
+    w = list(w)
+
+    def shifted(t):  # the same values, 8 bytes into a fresh buffer
+        buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+        out = buf[4:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    if which == "x":
+        x = shifted(x)
+    else:
+        i = {"w1": 0, "w3": 4}[which]
+        w[i] = shifted(w[i])
+    _check_chain(x, tuple(w), True, "simt")
 
 
 def test_mbconv_chain_wrapper_raises_instead_of_falling_back(dev):
@@ -247,18 +286,61 @@ def _attn_inputs(shape, dtype, dev, layout="", seed=0):
     ((1, 2, 3000, 32), torch.bfloat16, ""),       # shared memory does not grow with L
 ])
 def test_attention_kernel_matches_plain(dev, shape, dtype, layout, variant):
-    torch.backends.cuda.matmul.allow_tf32 = False
-    kw = ATTN_VARIANTS[variant]
     q, k, v = _attn_inputs(shape, dtype, dev, layout)
+    _check_attention(q, k, v, ATTN_VARIANTS[variant])
+
+
+def _check_attention(q, k, v, kw, body=None):
+    """One launch, against the plain version under its tolerance; with
+    ``body``, the plan's description of the kernel body too."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     before = A.attention.launches
     got = A.attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert A.attention.launches == before + 1
+    if body is not None:
+        assert A.attention_plan(q, k, v, got).describe() == body
     want = A.attention_ref(q, k, v, **kw)
-    assert got.dtype == dtype and got.shape == want.shape
+    assert got.dtype == q.dtype and got.shape == want.shape
     err = (got.float() - want.float()).abs()
     ratio = float((err / A.attention_tolerance(want, kw.get("round_logits", False))).max())
     assert ratio <= 1.0, f"max err {float(err.max()):.3e}, {ratio:.2f} of the tolerance"
+
+
+@pytest.mark.parametrize("variant", range(len(ATTN_VARIANTS)))
+@pytest.mark.parametrize("length", [1, 15, 16, 17, 257, 300, 1024])
+@pytest.mark.parametrize("d", [16, 32, 64, 88, 96, 128])
+def test_attention_bf16_bodies_at_their_edges(dev, variant, length, d):
+    """Lengths around the 16-row query tiles, the whole-head body's 272
+    keys and the streaming body's 64-key chunks; every head width."""
+    q, k, v = _attn_inputs((1, 2, length, d), torch.bfloat16, dev, seed=length * 131 + d)
+    _check_attention(q, k, v, ATTN_VARIANTS[variant], "whole-head" if length <= A.WHOLE_HEAD_KEYS else "streaming")
+
+
+def _unaligned(shape, dev, seed):
+    """q, k, v whose rows start 2 bytes past a 16-byte boundary."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b, h, l, d = shape
+    return tuple(torch.randn(b, h, l, d + 1, generator=gen, device=dev).bfloat16()[..., 1:] for _ in range(3))
+
+
+@pytest.mark.parametrize("variant", range(len(ATTN_VARIANTS)))
+@pytest.mark.parametrize("shape,layout,body", [
+    ((12, 16, 257, 88), "qkv", "whole-head"),                                 # the spin's 12 views
+    ((2, 4, 130, 16), "qkv", "whole-head"),
+    ((2, 16, 256, 88), "kt", "whole-head, K^T tile"),                         # K^T copied by cp.async
+    ((2, 16, 257, 88), "kt", "whole-head, K^T tile, element loads of k"),     # odd L: K^T element by element
+    ((1, 2, 1024, 64), "kt", "streaming, K^T tile"),
+    ((1, 3, 300, 40), "kt", "streaming, K^T tile, element loads of k"),
+    ((2, 3, 100, 24), "unaligned", "whole-head, element loads of q/k/v"),
+    ((1, 2, 300, 40), "unaligned", "streaming, element loads of q/k/v"),
+])
+def test_attention_layouts_take_their_bodies(dev, variant, shape, layout, body):
+    if layout == "unaligned":
+        q, k, v = _unaligned(shape, dev, seed=variant)
+    else:
+        q, k, v = _attn_inputs(shape, torch.bfloat16, dev, layout, seed=variant)
+    _check_attention(q, k, v, ATTN_VARIANTS[variant], body)
 
 
 def test_attention_padded_keys_do_not_leak(dev):

@@ -1,6 +1,7 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
-Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers).
+Every ``csrc/*.cu`` file exposes a plain C interface (no PyTorch headers);
+``csrc/*.cuh`` holds device helpers they share.
 Each source compiles to an object in its own ``nvcc`` process, all started
 together, and one more ``nvcc`` call links them into one shared library:
 
@@ -9,9 +10,9 @@ together, and one more ``nvcc`` call links them into one shared library:
     nvcc -shared -o <build>/<hash>/libvlfm_kernels.so <build>/<hash>/*.o
 
 The output lands in ``vlfm_tpu_torch/build/<hash>/``, keyed by a hash of
-the sources and the flags, so an edited source rebuilds and an unchanged one
-loads the existing library. A failed build raises with nvcc's output.
-Nothing here runs when the package is imported.
+the sources, the headers and the flags, so an edited source rebuilds and
+an unchanged one loads the existing library. A failed build raises with
+nvcc's output. Nothing here runs when the package is imported.
 """
 
 from __future__ import annotations
@@ -55,8 +56,9 @@ def _sources() -> list[Path]:
 
 
 def _source_hash(sources: list[Path]) -> str:
+    """Of the flags, the sources and the headers they share (``csrc/*.cuh``)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(CSRC_DIR.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -106,13 +108,11 @@ def load_library() -> ctypes.CDLL:
     lib.vlfm_layer_norm.restype = i
     lib.vlfm_layer_norm_max_d.argtypes = []
     lib.vlfm_layer_norm_max_d.restype = i
-    lib.vlfm_mbconv_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, p]
+    lib.vlfm_mbconv_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]
     lib.vlfm_mbconv_chain.restype = i
-    lib.vlfm_mbconv_chain_route.argtypes = [p, p, p, p, i, i, i, i]
-    lib.vlfm_mbconv_chain_route.restype = i
     f = ctypes.c_float
     lib.vlfm_attention.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, f,
-                                   i, i, i, i, i, p]
+                                   i, i, i, i, i, i, i, i, p]
     lib.vlfm_attention.restype = i
     lib.vlfm_deform_gather.argtypes = [p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, i, i, i, p]
     lib.vlfm_deform_gather.restype = i

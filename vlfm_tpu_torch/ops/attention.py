@@ -29,11 +29,19 @@ is no fallback from the kernel to the plain version. The kernel reads q, k
 and v through their strides, so the ViT's fused qkv projection reaches it
 as views (``qkv_views``), and it writes its output in (B, L, H, D) memory
 order, so that merging the heads afterwards is a view too.
+
+``attention_plan`` chooses the kernel's body, grid and shared memory from
+the shapes, dtypes, strides and pointers alone: bf16 with at most
+``WHOLE_HEAD_KEYS`` keys takes the whole-head body (one block per head,
+K and V loaded once), longer key axes the streaming body, f32 the CUDA-core
+body. The kernel refuses a plan whose shared-memory figure differs from its
+own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 from typing import Optional
 
@@ -109,12 +117,96 @@ def qkv_views(qkv: torch.Tensor, num_heads: int) -> tuple[torch.Tensor, torch.Te
     return t[0], t[1], t[2]
 
 
+# The kernel's launch geometry (vlfm_tpu_torch/csrc/attention.cu).
+WHOLE_HEAD_KEYS = 272  # the longest key axis the whole-head body holds
+_WARPS = 4  # warps of a block, one 16-row query tile each at a time
+_WHOLE_TILES_PER_BLOCK = 17  # query tiles of a whole-head block: L = 257 is one block a head
+_CHUNK_KEYS = 64  # keys of a streaming stage
+_STAGES = 3  # streaming ring depth
+_PAD = 8  # elements added to each shared tile row
+_F32_CHUNK = 64
+_BODY_CODES = {"f32": 0, "whole-head": 1, "streaming": 2}
+# Flag bits: q, k, v copied 16 bytes at a time; o stored in pairs; K's tile
+# is [D][keys] (K stored with unit stride on L).
+_VEC_Q, _VEC_K, _VEC_V, _PAIR_O, _K_T = 1, 2, 4, 8, 16
+
+
 def _aligned(t: torch.Tensor) -> bool:
     """Whether the kernel may copy ``t`` 16 bytes at a time: unit stride
     on D, and every row's 16-byte groups starting on a 16-byte boundary."""
     n = 16 // t.element_size()
     st = t.stride()
     return st[3] == 1 and t.shape[3] % n == 0 and all(s % n == 0 for s in st[:3]) and t.data_ptr() % 16 == 0
+
+
+def _aligned_keys(k: torch.Tensor) -> bool:
+    """Whether a K stored with unit stride on L may be copied eight keys at a
+    time: every D row's key groups start on a 16-byte boundary."""
+    st = k.stride()
+    return all(s % 8 == 0 for s in (st[0], st[1], st[3])) and k.data_ptr() % 16 == 0
+
+
+def _pairs(o: torch.Tensor) -> bool:
+    """Whether the kernel may store ``o`` two bf16 values (4 bytes) at a time."""
+    st = o.stride()
+    return st[3] == 1 and o.shape[3] % 2 == 0 and all(s % 2 == 0 for s in st[:3]) and o.data_ptr() % 4 == 0
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlan:
+    """How the kernel runs one call: its body ("whole-head", "streaming" or
+    "f32"), whether K's shared tile is [D][keys] (K stored transposed),
+    which tensors take element-by-element loads instead of 16-byte copies,
+    the query tiles of 16 rows per block, the grid (blocks per head,
+    batch x heads), the dynamic shared memory per block, and the flag bits
+    the kernel reads."""
+
+    body: str
+    k_transposed: bool
+    scalar_loads: tuple[str, ...]
+    tiles_per_block: int
+    grid: tuple[int, int]
+    smem_bytes: int
+    flags: int
+
+    def describe(self) -> str:
+        parts = [self.body]
+        if self.k_transposed:
+            parts.append("K^T tile")
+        if self.scalar_loads:
+            parts.append("element loads of " + "/".join(self.scalar_loads))
+        return ", ".join(parts)
+
+
+def attention_plan(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor) -> AttentionPlan:
+    """The kernel's launch plan for these (B, H, L, D) tensors, from their
+    shapes, dtypes, strides and pointers alone; the tensors may lie on any
+    device. The shared-memory figures are the kernel's ``smem_bytes``."""
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    bf16 = q.dtype == torch.bfloat16
+    dpad = -(-d // (32 if bf16 else 16)) * (32 if bf16 else 16)  # bf16: an even number of k16 steps
+    ldt = dpad + _PAD
+    kt = bf16 and k.stride(3) != 1 and k.stride(2) == 1
+    vec = {"q": _aligned(q), "k": _aligned_keys(k) if kt else _aligned(k), "v": _aligned(v)}
+    flags = int(vec["q"]) * _VEC_Q | int(vec["k"]) * _VEC_K | int(vec["v"]) * _VEC_V
+    flags |= (_PAIR_O if bf16 and _pairs(out) else 0) | (_K_T if kt else 0)
+    qtiles = -(-lq // 16)
+    if not bf16:
+        body, tiles = "f32", _WARPS
+        smem = 4 * ((_WARPS * 16 + 2 * _F32_CHUNK) * ldt + _WARPS * 16 * ((_F32_CHUNK + 4) + (_F32_CHUNK + 8)))
+    elif lk <= WHOLE_HEAD_KEYS:
+        body, tiles = "whole-head", min(qtiles, _WHOLE_TILES_PER_BLOCK)
+        k_tile = dpad * (WHOLE_HEAD_KEYS + _PAD) if kt else WHOLE_HEAD_KEYS * ldt
+        smem = 2 * (k_tile + WHOLE_HEAD_KEYS * ldt)
+    else:
+        body, tiles = "streaming", _WARPS
+        k_tile = dpad * (_CHUNK_KEYS + _PAD) if kt else _CHUNK_KEYS * ldt
+        smem = 2 * _STAGES * (k_tile + _CHUNK_KEYS * ldt)
+    return AttentionPlan(
+        body=body, k_transposed=kt, scalar_loads=tuple(n for n, ok in vec.items() if not ok),
+        tiles_per_block=tiles, grid=(-(-qtiles // tiles), b * h), smem_bytes=smem, flags=flags,
+    )
 
 
 def _check_cuda_args(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, normalize: str) -> None:
@@ -169,13 +261,14 @@ def attention(
     if lk == 0:
         raise ValueError("attention over zero keys")
     lib = load_library()
+    plan = attention_plan(q, k, v, out)
     strides = (ctypes.c_longlong * 16)(*(s for t in (q, k, v, out) for s in t.stride()))
-    vec = int(_aligned(q)) | int(_aligned(k)) << 1 | int(_aligned(v)) << 2
     err = lib.vlfm_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
         b, h, lq, lk, d, 1.0 / math.sqrt(d), -1.0 if clamp is None else float(clamp),
-        int(clamp is None), int(normalize == "probs"), int(round_logits), vec,
-        _DTYPE_CODES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream,
+        int(clamp is None), int(normalize == "probs"), int(round_logits), plan.flags,
+        _DTYPE_CODES[q.dtype], _BODY_CODES[plan.body], plan.tiles_per_block, plan.smem_bytes,
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"attention kernel launch failed: cudaError {err}")

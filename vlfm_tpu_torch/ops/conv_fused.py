@@ -19,15 +19,26 @@ the stride-2 stages, which are plain strided ``F.conv2d`` calls in
 
 ``mbconv_chain`` routes by the device of its input: a CPU tensor goes to
 ``mbconv_chain_ref``; a CUDA tensor goes to the kernel, or the call raises.
-There is no fallback from the kernel to the plain version.
+There is no fallback from the kernel to the plain version. ``chain_plan``
+chooses the kernel's body (and with it the output tile), grid and shared
+memory from the shapes, dtype and pointers alone; the kernel refuses a plan whose shared-memory
+figure differs from its own.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The kernel's geometry (vlfm_tpu_torch/csrc/mbconv_chain.cu).
+_BODY_CODES = {"simt": 0, "tensor-core 16x16": 1, "tensor-core 4x16": 2}
+_TILE_W = 16  # output columns of a tensor-core tile
+_CHUNK = 64  # hidden channels per pass of the tensor-core body
+_SIMT_CHUNK, _SIMT_TILE = 32, 8
+_MAX_SMEM = 232448  # a block's shared-memory limit on an H100
 
 
 def mbconv_chain_ref(
@@ -116,6 +127,58 @@ def _args(x, w1, b1, w2, b2, w3, b3, out):
     return [t.data_ptr() for t in (x, w1, b1, w2, b2, w3, b3, out)]
 
 
+@dataclasses.dataclass(frozen=True)
+class ChainPlan:
+    """How the kernel runs one call: its body ("tensor-core 16x16" or
+    "tensor-core 4x16", after a block's output tile of rows x columns, or
+    "simt" on 8 x 8 tiles), the grid (column tiles, row tiles, batch) and
+    the dynamic shared memory of a block."""
+
+    body: str
+    grid: tuple[int, int, int]
+    smem_bytes: int
+
+
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _tc_smem(rows: int, cin: int, cout: int) -> int:
+    """The tensor-core body's shared memory (csrc/mbconv_chain.cu:TcSmem):
+    the x halo tile, two h tiles, two slots each of the W1 slice, the W3
+    slice, w2, b1 and b2. Every bf16 row is padded by 8 elements."""
+    mh = -(-((rows + 2) * (_TILE_W + 2)) // 16) * 16  # halo pixels, padded to 16 rows
+    ldc = _CHUNK + 8
+    regions = (2 * mh * (cin + 8), 2 * 2 * mh * ldc, 2 * 2 * cin * ldc, 2 * 2 * _CHUNK * (cout + 8),
+               2 * 2 * 9 * _CHUNK, 4 * 2 * _CHUNK, 4 * 2 * _CHUNK)
+    off = 0
+    for n in regions:
+        off = _align128(off + n)
+    return off
+
+
+def chain_plan(x, w1, b1, w2, b2, w3, out) -> ChainPlan:
+    """The kernel's launch plan for these tensors (on any device), from their
+    shapes, dtype and pointers alone. bf16 with Cin a multiple of 16, Ch of
+    64 and 16-byte aligned pointers takes the tensor cores: 16 x 16 output
+    tiles for Cout up to 64 (a multiple of 16), 4 x 16 tiles for a wider
+    Cout up to 320 (a multiple of 32). Everything else takes the CUDA-core
+    body on 8 x 8 tiles."""
+    b, h, w, cin = x.shape
+    ch, cout = w1.shape[1], w3.shape[1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w1, b1, w2, b2, w3, out))
+    if x.dtype == torch.bfloat16 and aligned and cin % 16 == 0 and ch % _CHUNK == 0:
+        rows = 16 if cout % 16 == 0 and cout <= 64 else 4 if cout % 32 == 0 and cout <= 320 else 0
+        if rows and _tc_smem(rows, cin, cout) <= _MAX_SMEM:
+            return ChainPlan(f"tensor-core {rows}x{_TILE_W}", (-(-w // _TILE_W), -(-h // rows), b),
+                             _tc_smem(rows, cin, cout))
+    halo = (_SIMT_TILE + 2) ** 2
+    smem = 4 * (halo * cin + halo * _SIMT_CHUNK + _SIMT_TILE**2 * (_SIMT_CHUNK + cout))
+    if smem > _MAX_SMEM:
+        raise ValueError(f"mbconv_chain kernel: Cin={cin}, Cout={cout} need {smem} bytes of shared memory")
+    return ChainPlan("simt", (-(-w // _SIMT_TILE), -(-h // _SIMT_TILE), b), smem)
+
+
 def mbconv_chain(
     x: torch.Tensor,
     w1: torch.Tensor, b1: torch.Tensor,
@@ -143,10 +206,12 @@ def mbconv_chain(
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    plan = chain_plan(x, w1, b1, w2, b2, w3, out)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = lib.vlfm_mbconv_chain(
         *_args(x, w1, b1, w2, b2, w3, b3, out), b, h, w, cin, ch, cout,
-        int(residual), int(final_gelu), _DTYPE_CODES[x.dtype], stream,
+        int(residual), int(final_gelu), _DTYPE_CODES[x.dtype], _BODY_CODES[plan.body], plan.smem_bytes,
+        stream,
     )
     if err != 0:
         raise RuntimeError(f"mbconv_chain kernel launch failed: cudaError {err}")
@@ -156,14 +221,3 @@ def mbconv_chain(
 
 mbconv_chain.launches = 0
 
-
-def kernel_route(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor, out: torch.Tensor) -> str:
-    """Which of the kernel's two bodies a CUDA call with these tensors takes:
-    "tensor-core" (bf16, channels in multiples of 16, Ch of 32) or "simt"."""
-    from vlfm_tpu_torch.kernels.build import load_library
-
-    route = load_library().vlfm_mbconv_chain_route(
-        x.data_ptr(), w1.data_ptr(), w3.data_ptr(), out.data_ptr(),
-        x.shape[-1], w1.shape[1], w3.shape[1], _DTYPE_CODES[x.dtype],
-    )
-    return "tensor-core" if route == 1 else "simt"
