@@ -45,10 +45,13 @@ Phases (any failure raises, and the script exits non-zero):
  12. full-width detection timings: one pipeline call at B=8 and its parts;
  13. the deformable gather kernel (K4) against its plain version at the
      GroundingDINO encoder's shape (B=8, Q = S = 13,294 over four levels)
-     in the main path's f32 and in bf16, at the decoder's (Q = 900, grids
-     from reference boxes) and at ragged f32 and bf16 shapes, with grids
-     over [-1.5, 1.5] and some at +-1e6; CUDA-event timings of the kernel,
-     the plain version and the grid_sample formulation, and the bound;
+     in the main path's f32 and in bf16 with grids over [-1.5, 1.5], in
+     f32 with local grids (each token's centre plus N(0, 1)-pixel offsets
+     per level, as the encoder samples), at the decoder's (Q = 900, grids
+     from reference boxes) and at ragged f32 and bf16 shapes, some grids at
+     +-1e6; each case's launch plan; CUDA-event timings of the kernel, the
+     plain version and the grid_sample formulation, the bound, and the
+     replaced design's time (``PARENT_K4_MS``);
  14. tiny GroundingDINO pipeline (GroundingDINO -> gated MobileSAM): the
      same weights on the CPU and on the card (K4 4 times per detect call)
      give the same boxes, scores, validity and classes, and masks within a
@@ -105,7 +108,7 @@ from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_ref, attention_tolerance, qkv_views
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
-from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance
+from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance, plan_for
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
@@ -221,18 +224,29 @@ GATED_MASK_FLIPS = 1e-2  # bf16: cuBLAS picks other GEMM tilings at 2 and 8 fram
 # GroundingDINO's four levels at 800 px: Swin-T stages 2-4 (strides 8, 16,
 # 32) and the extra stride-2 conv, S = 13,294 tokens.
 DEFORM_LEVELS = ((100, 100), (50, 50), (25, 25), (13, 13))
-# (name, B, Q, nh, dh, levels, P, value dtype, weights dtype, grids from
-# reference boxes): the encoder's self-attention (Q = S) in the main path's
-# f32 (flax's promotion keeps GroundingDINO's streams f32 under bf16
-# weights) and in bf16, the decoder's cross-attention (900 queries, 4-d
-# reference boxes), and the CPU tests' ragged shape in f32 and bf16.
+# (name, B, Q, nh, dh, levels, P, value dtype, weights dtype, grids): the
+# encoder's self-attention (Q = S) in the main path's f32 (flax's promotion
+# keeps GroundingDINO's streams f32 under bf16 weights) and in bf16 with
+# uniform grids, in f32 with local grids, the decoder's cross-attention (900
+# queries, grids from 4-d reference boxes), and the CPU tests' ragged shape
+# in f32 and bf16.
 DEFORM_CASES = [
-    ("encoder, the main path's f32", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, False),
-    ("encoder, bf16 value and weights", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.bfloat16, torch.bfloat16, False),
-    ("decoder, the main path's f32", 8, 900, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, True),
-    ("ragged f32", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, False),
-    ("ragged bf16", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.bfloat16, torch.float32, False),
+    ("encoder, the main path's f32", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, "uniform"),
+    ("encoder, bf16 value and weights", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.bfloat16, torch.bfloat16, "uniform"),
+    ("encoder, local grids", 8, 13294, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, "local"),
+    ("decoder, the main path's f32", 8, 900, 8, 32, DEFORM_LEVELS, 4, torch.float32, torch.float32, "boxes"),
+    ("ragged f32", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, "uniform"),
+    ("ragged bf16", 1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.bfloat16, torch.float32, "uniform"),
 ]
+# K4's first design (one warp per item; commit 717047f), timed on the same
+# inputs in one run on one card, in turns with this version's kernel, by
+# scripts/ab_deform_gather.py; printed beside this version's times.
+PARENT_K4_CARD = "commit 717047f on an NVIDIA H100 80GB HBM3, 700 W"
+PARENT_K4_MS = {  # case -> ms
+    "encoder, the main path's f32": 1.3438, "encoder, bf16 value and weights": 1.3802,
+    "encoder, local grids": 1.4307, "decoder, the main path's f32": 0.1240, "ragged f32": 0.0080,
+    "ragged bf16": 0.0080,
+}
 FAR_SHARE = 0.01  # grids at +-1e6: far off every map
 TINY_GDINO_BOX_ATOL = 1e-4
 K4_PER_DETECT = deformable_attentions(GroundingDinoConfig())  # 6 encoder + 6 decoder layers
@@ -471,7 +485,7 @@ def spin_maps(inputs, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig):
     value = VM.create(spec, cfg.value_channels, device=DEV)
     for steps, ((tf, depth), cos) in enumerate(zip(inputs, cosines.to(DEV))):
         obstacle = update_obstacles(obstacle, spec, cfg, depth, tf, steps)
-        fuse_view(value, spec, cfg, cos, depth, tf)
+        fuse_view(value, spec, cfg, cos, depth, tf, obstacle.explored)
     return obstacle, value
 
 
@@ -815,11 +829,12 @@ def phase_detection_timing(cfg, det, sam, rgb, smi: str) -> None:
 
 
 # --- phase 13 ----------------------------------------------------------------
-def deform_inputs(b, q, nh, dh, levels, npts, vdtype, wdtype, from_boxes, gen):
-    """Seeded value, grids and softmaxed weights on the card. Grids spread
-    over [-1.5, 1.5] (the encoder: reference points plus offsets), or come
-    from reference boxes as the decoder makes them; FAR_SHARE of them sit at
-    +-1e6."""
+def deform_inputs(b, q, nh, dh, levels, npts, vdtype, wdtype, kind, gen):
+    """Seeded value, grids and softmaxed weights on the card. ``kind``:
+    "uniform" grids spread over [-1.5, 1.5], the worst case for locality;
+    "local" grids at each token's centre (Q = S) plus N(0, 1)-pixel offsets
+    per level, as the encoder makes them; "boxes" grids from reference
+    boxes, as the decoder makes them. FAR_SHARE of them sit at +-1e6."""
     s = sum(h * w for h, w in levels)
 
     def rnd(*shape):
@@ -827,10 +842,18 @@ def deform_inputs(b, q, nh, dh, levels, npts, vdtype, wdtype, from_boxes, gen):
 
     value = torch.randn(b, s, nh * dh, generator=gen, device=DEV).to(vdtype)
     shape = (b, q, nh, len(levels), npts, 2)
-    if from_boxes:
+    if kind == "boxes":
         boxes = torch.cat([rnd(b, q, 2), 0.02 + 0.5 * rnd(b, q, 2)], -1)[:, :, None, None, None, :]
         offsets = torch.randn(*shape, generator=gen, device=DEV)
         grids = 2 * (boxes[..., :2] + offsets / npts * boxes[..., 2:] * 0.5) - 1
+    elif kind == "local":
+        check(q == s, "local grids need one query per token")
+        centres = [torch.stack(torch.meshgrid((torch.arange(h, device=DEV) + 0.5) / h,
+                                              (torch.arange(w, device=DEV) + 0.5) / w, indexing="ij")[::-1], -1)
+                   for h, w in levels]  # (H, W, 2) as (x, y)
+        refs = torch.cat([c.reshape(-1, 2) for c in centres])[None, :, None, None, None, :]
+        pixel = torch.tensor([[w, h] for h, w in levels], dtype=torch.float32, device=DEV)[:, None, :]
+        grids = 2 * (refs + torch.randn(*shape, generator=gen, device=DEV) / pixel) - 1
     else:
         grids = (rnd(*shape) * 2 - 1) * 1.5
     grids = torch.where(rnd(*shape) < FAR_SHARE, torch.where(rnd(*shape) < 0.5, -1e6, 1e6), grids).contiguous()
@@ -861,8 +884,9 @@ def deform_grid_sample(value, levels, grids, weights):
 def phase_deform_gather() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows_out = []
-    for name, b, q, nh, dh, levels, npts, vdt, wdt, from_boxes in DEFORM_CASES:
-        value, grids, weights = deform_inputs(b, q, nh, dh, levels, npts, vdt, wdt, from_boxes, gen)
+    for name, b, q, nh, dh, levels, npts, vdt, wdt, kind in DEFORM_CASES:
+        value, grids, weights = deform_inputs(b, q, nh, dh, levels, npts, vdt, wdt, kind, gen)
+        plan = plan_for(value, grids, weights)
         got = deform_gather(value, levels, grids, weights)
         torch.cuda.synchronize()
         want = deform_gather_ref(value, levels, grids, weights)
@@ -880,13 +904,15 @@ def phase_deform_gather() -> dict:
         n_bytes = sum(t.numel() * t.element_size() for t in (value, grids, weights)) + got.numel() * 4
         bound_ms, bound_by = bound(n_bytes, samples * (9 * dh + 30), torch.float32)
         taps_gb = samples * 4 * dh * value.element_size() / 1e9
+        parent = PARENT_K4_MS.get(name)
         log(
             f"[deform_gather] {name}: B={b} Q={q} nh={nh} dh={dh} levels {list(levels)} P={npts} "
-            f"value {str(vdt).split('.')[-1]} weights {str(wdt).split('.')[-1]}: max_abs_err={max_abs:.3e} "
-            f"(tol {tol:.3e}) {'ok' if max_abs <= tol else 'FAIL'}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"grid_sample formulation {gs_ms:.4f} ms (err {gs_err:.3e}; not a library counterpart), "
-            f"bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); the samples' taps are "
-            f"{taps_gb:.2f} GB of L2 traffic"
+            f"value {str(vdt).split('.')[-1]} weights {str(wdt).split('.')[-1]} ({plan.describe()}): "
+            f"max_abs_err={max_abs:.3e} (tol {tol:.3e}) {'ok' if max_abs <= tol else 'FAIL'}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, grid_sample formulation {gs_ms:.4f} ms (err {gs_err:.3e}; not a library "
+            f"counterpart), bound {bound_ms:.4f} ms ({bound_by}, {n_bytes / 1e6:.1f} MB); the samples' taps are "
+            f"{taps_gb:.2f} GB through L1 and L2"
+            + (f"; the parent's kernel {parent:.4f} ms ({PARENT_K4_CARD})" if parent else "")
         )
         check(max_abs <= tol, f"deform_gather {name} disagrees with its plain version")
         rows_out.append(dict(name=name, max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, grid_sample_ms=gs_ms,

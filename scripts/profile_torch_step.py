@@ -181,10 +181,10 @@ def main() -> None:
     cos12 = engine.score(rgb12, S.TARGET)
     obstacle, value = S.spin_maps(inputs, cos12, spec, cfg)
 
-    def value_part():
+    def value_part():  # the spin's final explored area stands for each view's
         state = S.VM.create(spec, cfg.value_channels, device=S.DEV)
         for (tf, depth), cos in zip(inputs, cos12):
-            fuse_view(state, spec, cfg, cos, depth, tf)
+            fuse_view(state, spec, cfg, cos, depth, tf, obstacle.explored)
 
     step, obstacle_part = S.spin_step_fns(views, engine, spec, cfg)
     parts = {

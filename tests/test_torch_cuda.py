@@ -417,10 +417,21 @@ def test_obstacle_map_card_matches_cpu(dev):
     torch.testing.assert_close(got.frontiers_xy.cpu(), want.frontiers_xy, atol=0.1, rtol=0)
 
 
-def _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, spread=1.5, far=0.0, seed=0):
+def _offset_view(t, offset):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its buffer."""
+    if not offset:
+        return t
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, spread=1.5, far=0.0, seed=0,
+                   value_offset=0, grids_offset=0):
     gen = torch.Generator(device=dev).manual_seed(seed)
     s = sum(h * w for h, w in shapes)
-    value = torch.randn(b, s, nh * dh, generator=gen, device=dev).to(vdtype)
+    value = _offset_view(torch.randn(b, s, nh * dh, generator=gen, device=dev).to(vdtype), value_offset)
     grids = (torch.rand(b, q, nh, len(shapes), npts, 2, generator=gen, device=dev) * 2 - 1) * spread
     if far:
         pick = torch.rand(grids.shape, generator=gen, device=dev) < far
@@ -428,19 +439,31 @@ def _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, spread=1.5, 
         grids = torch.where(pick, sign * 1e6, grids)
     logits = torch.randn(b, q, nh, len(shapes) * npts, generator=gen, device=dev)
     weights = torch.softmax(logits, -1).reshape(b, q, nh, len(shapes), npts).to(wdtype)
-    return value, grids, weights
+    return value, _offset_view(grids.contiguous(), grids_offset), weights
 
 
-@pytest.mark.parametrize("b,q,nh,dh,shapes,npts,vdtype,wdtype,far", [
-    (2, 1200, 8, 32, ((40, 40), (20, 20), (10, 10), (5, 5)), 4, torch.float32, torch.float32, 0.0),  # encoder-like
-    (2, 900, 8, 32, ((40, 40), (20, 20), (10, 10), (5, 5)), 4, torch.bfloat16, torch.float32, 0.05),
-    (1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, 0.2),  # the CPU tests' ragged shape
-    (1, 33, 3, 40, ((6, 11),), 2, torch.bfloat16, torch.bfloat16, 0.0),            # dh over one warp
-    (1, 5, 1, 128, ((3, 4), (2, 2)), 20, torch.float32, torch.bfloat16, 0.1),       # widest head, 40 samples
+FOUR_LEVELS = ((40, 40), (20, 20), (10, 10), (5, 5))
+
+
+@pytest.mark.parametrize("b,q,nh,dh,shapes,npts,vdtype,wdtype,far,value_offset,grids_offset", [
+    (2, 1200, 8, 32, FOUR_LEVELS, 4, torch.float32, torch.float32, 0.0, 0, 0),  # encoder-like: 16 samples
+    (2, 900, 8, 32, FOUR_LEVELS, 4, torch.bfloat16, torch.float32, 0.05, 0, 0),
+    (1, 70, 2, 16, ((7, 9), (4, 5), (2, 3)), 3, torch.float32, torch.float32, 0.2, 0, 0),  # the CPU tests' ragged shape
+    (1, 33, 3, 40, ((6, 11),), 2, torch.bfloat16, torch.bfloat16, 0.0, 0, 0),  # 5 vectors over a group of 8
+    (1, 5, 1, 128, ((3, 4), (2, 2)), 20, torch.float32, torch.bfloat16, 0.1, 0, 0),  # widest head, 40 samples
+    (2, 301, 3, 33, FOUR_LEVELS, 4, torch.float32, torch.float32, 0.05, 0, 0),  # odd dh: 2 elements a lane
+    (1, 77, 2, 33, ((9, 7), (3, 3)), 20, torch.bfloat16, torch.float32, 0.05, 0, 0),  # odd dh, 40 samples
+    (2, 1201, 8, 32, FOUR_LEVELS, 4, torch.float32, torch.float32, 0.05, 0, 0),  # bulk copies, a ragged last tile
+    (2, 1201, 8, 32, FOUR_LEVELS, 4, torch.float32, torch.float32, 0.05, 1, 0),  # value 4 bytes off 16
+    (2, 1201, 8, 32, FOUR_LEVELS, 4, torch.float32, torch.float32, 0.05, 2, 1),  # value 8 bytes off, grids 4 bytes off
+    (2, 1201, 8, 32, FOUR_LEVELS, 4, torch.bfloat16, torch.bfloat16, 0.05, 2, 0),  # bf16 value 4 bytes off 16
 ])
-def test_deform_gather_kernel_matches_plain(dev, b, q, nh, dh, shapes, npts, vdtype, wdtype, far):
+def test_deform_gather_kernel_matches_plain(dev, b, q, nh, dh, shapes, npts, vdtype, wdtype, far, value_offset,
+                                            grids_offset):
     torch.backends.cuda.matmul.allow_tf32 = False
-    value, grids, weights = _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, far=far)
+    value, grids, weights = _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, far=far,
+                                           value_offset=value_offset, grids_offset=grids_offset)
+    assert value.is_contiguous() and value.data_ptr() % 16 == (value_offset * value.element_size()) % 16
     before = DG.deform_gather.launches
     got = DG.deform_gather(value, shapes, grids, weights)
     torch.cuda.synchronize()
@@ -450,7 +473,32 @@ def test_deform_gather_kernel_matches_plain(dev, b, q, nh, dh, shapes, npts, vdt
     err = float((got - want).abs().max())
     assert err <= DG.deform_gather_tolerance(value, weights), err
     again = DG.deform_gather(value, shapes, grids, weights)
-    assert torch.equal(again, got)  # one warp per output, a fixed order: bit-reproducible
+    assert torch.equal(again, got)  # one lane group per output, a fixed order: bit-reproducible
+
+
+def test_deform_gather_kernel_refuses_a_plan_it_does_not_share(dev):
+    """The C side checks the plan's legality and its shared-memory figure."""
+    from vlfm_tpu_torch.kernels.build import load_library
+
+    shapes = FOUR_LEVELS
+    b, q, nh, dh, npts = 1, 40, 8, 32, 4
+    value, grids, weights = _deform_inputs(b, q, nh, dh, shapes, npts, torch.float32, torch.float32, dev)
+    out = torch.empty(b, q, nh, dh, device=dev)
+    plan = DG.deform_plan(b, q, nh, dh, len(shapes), npts, torch.float32, torch.float32, 16)
+    levels = (DG.ctypes.c_int * 8)(*(n for hw in shapes for n in hw))
+
+    def call(**change):
+        args = dict(vec=plan.vec, lanes=plan.lanes, chunks=plan.chunks, warps=plan.warps, nlp=16,
+                    bulk=int(plan.bulk), grid=plan.grid, smem=plan.smem_bytes) | change
+        return load_library().vlfm_deform_gather(
+            value.data_ptr(), grids.data_ptr(), weights.data_ptr(), out.data_ptr(), levels, 4, b, value.shape[1],
+            q, nh, dh, npts, 0, 0, *args.values(), torch.cuda.current_stream(dev).cuda_stream)
+
+    assert call() == 0
+    torch.cuda.synchronize()
+    for change in (dict(smem=plan.smem_bytes + 16), dict(lanes=plan.lanes * 2), dict(vec=8), dict(nlp=0),
+                   dict(bulk=0), dict(chunks=2)):
+        assert call(**change) != 0, change
 
 
 def test_deform_gather_on_the_card_never_takes_the_plain_version(dev, monkeypatch):

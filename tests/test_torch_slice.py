@@ -10,7 +10,8 @@ controller (vlfm_tpu/policy/itm.py:253-261). Held: cosines to 1e-4, the
 value map to 1e-5 and the obstacle grids cell for cell (but for cone-edge
 cells on an ulp tie, at most 0.1 % of the cells updated), the frontiers
 (their validity exactly, their position to 1e-6 m), waypoint values to
-1e-4, and the same chosen frontier and action.
+1e-4, and the same chosen frontier and action; also with
+``sync_explored_areas``, which cuts the value map to the explored area.
 """
 
 import dataclasses
@@ -93,7 +94,7 @@ def _robot(views):
     return np.float32(views[-1]["robot_xy"]), np.float32(views[-1]["heading"])
 
 
-def run_jax(views, cosines):
+def run_jax(views, cosines, sync_explored=False):
     cam = CFG.camera
     obstacle = JOM.create(JSPEC, CFG.max_frontiers)
     state = JVM.create(JSPEC, CFG.value_channels)
@@ -109,7 +110,8 @@ def run_jax(views, cosines):
             max_frontiers=CFG.max_frontiers)
         state = JVM.update(state, JSPEC, c, depth, tf, cam.min_depth, cam.max_depth, cam.hfov,
                            use_max_confidence=CFG.use_max_confidence,
-                           fusion_type=JVM.FUSION_DEFAULT)
+                           fusion_type=JVM.FUSION_DEFAULT,
+                           explored=obstacle.explored if sync_explored else None)  # itm.py:157
     robot, heading = _robot(views)
     fxy, valid = obstacle.frontiers_xy, obstacle.frontiers_valid
     wv = JVM.waypoint_values(state, JSPEC, fxy, valid, radius_px=int(0.5 * JSPEC.pixels_per_meter))
@@ -123,16 +125,17 @@ def run_jax(views, cosines):
     return obstacle, state, wv, choice, (float(rho), float(theta)), int(action)
 
 
-def run_torch(views, cosines):
-    cam = TCFG.camera
+def run_torch(views, cosines, sync_explored=False):
+    cfg = dataclasses.replace(TCFG, sync_explored_areas=sync_explored)
+    cam = cfg.camera
     obstacle = OM.create(SPEC, TCFG.max_frontiers, device="cpu")
     state = VM.create(SPEC, TCFG.value_channels, device="cpu")
     for steps, (o, c) in enumerate(zip(views, cosines)):
         xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height])
         tf = G.xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32))
         depth = torch.from_numpy(o["depth"].astype(np.float32))
-        obstacle = ITM.update_obstacles(obstacle, SPEC, TCFG, depth, tf, steps)
-        ITM.fuse_view(state, SPEC, TCFG, c, depth, tf)
+        obstacle = ITM.update_obstacles(obstacle, SPEC, cfg, depth, tf, steps)
+        ITM.fuse_view(state, SPEC, cfg, c, depth, tf, obstacle.explored)
     robot, heading = _robot(views)
     dec = ITM.decide(state, SPEC, obstacle, torch.from_numpy(robot), torch.tensor(heading), torch.zeros(2),
                      torch.tensor(-np.inf), AC.create(device="cpu"))
@@ -153,10 +156,10 @@ def _assert_map_close(got, want, n_views):
     assert bad.sum() <= EDGE_FLIP_FRACTION * n_views * 256 * 256, f"{bad.sum()} cells differ"
 
 
-def _compare(views, jcos, tcos):
+def _compare(views, jcos, tcos, sync_explored=False):
     jviews, tviews = views
-    jobs, jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos)
-    tobs, tstate, dec = run_torch(tviews, tcos)
+    jobs, jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos, sync_explored)
+    tobs, tstate, dec = run_torch(tviews, tcos, sync_explored)
     _assert_map_close(tstate.conf.numpy(), jstate.conf, len(tviews))
     _assert_map_close(tstate.values.numpy(), jstate.values, len(tviews))
     for name in ("obstacles", "navigable", "explored"):
@@ -198,6 +201,17 @@ def test_spin_slice_picks_the_high_value_view_like_jax(views):
     off = (bearing - views[1][HIGH_VIEW]["heading"] + np.pi) % (2 * np.pi) - np.pi
     assert abs(off) <= CFG.camera.hfov / 2  # the frontier lies in view 7's cone
     assert action in (ITM.TURN_LEFT, ITM.TURN_RIGHT, ITM.MOVE_FORWARD)
+
+
+def test_spin_slice_with_synced_explored_area_matches_jax(views):
+    """With ``sync_explored_areas`` the value map is cut to the obstacle
+    map's explored area after every view (vlfm_tpu/policy/itm.py:157), in
+    both packages alike; the cut changes the port's map."""
+    cos = np.linspace(0.1, 0.9, 12 * CFG.value_channels, dtype=np.float32).reshape(12, -1)
+    _compare(views, jnp.asarray(cos), torch.from_numpy(cos), sync_explored=True)
+    _, synced, _ = run_torch(views[1], torch.from_numpy(cos), sync_explored=True)
+    _, unsynced, _ = run_torch(views[1], torch.from_numpy(cos))
+    assert not torch.equal(synced.conf, unsynced.conf)
 
 
 def test_port_imports_no_jax():

@@ -114,6 +114,7 @@ def load_library() -> ctypes.CDLL:
     lib.vlfm_attention.argtypes = [p, p, p, p, ctypes.POINTER(ctypes.c_longlong), i, i, i, i, i, f, f,
                                    i, i, i, i, i, i, i, i, p]
     lib.vlfm_attention.restype = i
-    lib.vlfm_deform_gather.argtypes = [p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, i, i, i, p]
+    lib.vlfm_deform_gather.argtypes = [p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, i, i, i,
+                                       i, i, i, i, i, i, i, i, p]
     lib.vlfm_deform_gather.restype = i
     return lib

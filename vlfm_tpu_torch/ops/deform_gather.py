@@ -24,11 +24,21 @@ then the einsum); CUDA tensors launch ``csrc/deform_gather.cu``, which
 samples ``value`` directly (a GPU gathers natively, so the table that stores
 each value row four times is not built), or the call raises. There is no
 fallback from the kernel to the plain version.
+
+``deform_plan`` chooses the kernel's launch from the shapes, dtypes and
+pointer alignments alone: the widest tap load (up to 16 bytes) that divides
+the head and the value pointer, the lanes per (b, q, h) item, the tile of
+items per block, the 16-sample template or the run-time loop, whether grids
+and weights reach shared memory by bulk copies, the persistent grid (its
+blocks take every grid-th tile) and the shared memory. The kernel refuses a
+plan that is not legal for the tensors or whose shared-memory figure
+differs from its own.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Sequence, Tuple
 
 import torch
@@ -137,14 +147,115 @@ def _check_cuda_args(value, spatial_shapes, grids, weights) -> None:
         raise ValueError("deform_gather kernel takes fewer than 2^31 elements per tensor")
 
 
+# The kernel's launch geometry (vlfm_tpu_torch/csrc/deform_gather.cu).
+_WARP = 32
+_BLOCKS_PER_SM = 2  # its __launch_bounds__: 8 warps, at most 128 registers a thread
+_WARPS_PER_SM = 8 * _BLOCKS_PER_SM  # what the register file holds at that figure
+_SMEM_PER_SM = 233472  # an H100 SM's shared memory, 1 KB of it reserved per block
+_SMEM_CAP = _SMEM_PER_SM // _BLOCKS_PER_SM - 1024
+SAMPLE_TEMPLATE = 16  # nl * P that the unrolled body takes: GroundingDINO's 4 levels x 4 points
+H100_SMS = 132
+
+
+@dataclasses.dataclass(frozen=True)
+class DeformPlan:
+    """How the kernel runs one call: ``vec`` elements per tap load
+    (``load_bytes`` bytes), ``lanes`` lanes per (b, q, h) item with
+    ``chunks`` loads each per tap, ``warps`` warps a block, ``tile_items``
+    items a tile, the sample loop ("16" unrolled or "generic"), whether
+    whole tiles' grids and weights arrive by bulk copies, the persistent
+    grid of blocks, and the dynamic shared memory of a block."""
+
+    vec: int
+    load_bytes: int
+    lanes: int
+    chunks: int
+    warps: int
+    tile_items: int
+    samples: str
+    bulk: bool
+    grid: int
+    smem_bytes: int
+
+    @property
+    def items_per_warp(self) -> int:
+        return _WARP // self.lanes
+
+    @property
+    def block(self) -> int:
+        return self.warps * _WARP
+
+    def describe(self) -> str:
+        return (f"{self.load_bytes}-byte taps, {self.lanes} lanes x {self.chunks} an item, "
+                f"{self.items_per_warp} items a warp, {self.tile_items} a tile, {self.samples}-sample loop, "
+                f"grids and weights by {'bulk copies' if self.bulk else 'thread loads'}, "
+                f"{self.grid} blocks x {self.block} threads, {self.smem_bytes} B shared")
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def alignment(ptr: int) -> int:
+    """The largest power of two up to 16 that divides ``ptr``."""
+    return 16 if ptr % 16 == 0 else ptr & -ptr
+
+
+def deform_plan(b: int, q: int, nh: int, dh: int, nl: int, npts: int, value_dtype: torch.dtype,
+                weight_dtype: torch.dtype, value_align: int, *, tables_align: int = 16,
+                sms: int = H100_SMS) -> DeformPlan:
+    """The kernel's launch plan. ``value_align`` and ``tables_align`` are
+    the alignments (``alignment``) of the value pointer and of the grids and
+    weights pointers; ``sms`` the card's multiprocessors. The shared-memory
+    figure is the kernel's ``smem_bytes``."""
+    esize, wsize = torch.finfo(value_dtype).bits // 8, torch.finfo(weight_dtype).bits // 8
+    vec = 16 // esize
+    while vec > 1 and (dh % vec or value_align % (vec * esize)):
+        vec //= 2
+    nvec = dh // vec
+    lanes = 1
+    while lanes < min(nvec, _WARP):
+        lanes *= 2
+    chunks = 1
+    while lanes * chunks < nvec:
+        chunks *= 2
+    nlp = nl * npts
+    for warps in (8, 4, 2, 1):
+        tile = warps * _WARP // lanes
+        ts = tile * nlp
+        bulk = tables_align % 16 == 0 and ts * 8 % 16 == 0 and ts * wsize % 16 == 0
+        smem = 16 + 64 * ts + (2 * (_align16(ts * 8) + _align16(ts * wsize)) if bulk else 0)
+        if smem <= _SMEM_CAP:
+            break
+    else:
+        raise ValueError(f"deform_gather kernel: {nlp} samples per item need {smem} bytes of shared memory")
+    tiles = -(-(b * q * nh) // tile)
+    per_sm = max(1, min(_WARPS_PER_SM // warps, _SMEM_PER_SM // (smem + 1024)))
+    return DeformPlan(
+        vec=vec, load_bytes=vec * esize, lanes=lanes, chunks=chunks, warps=warps, tile_items=tile,
+        samples=str(SAMPLE_TEMPLATE) if nlp == SAMPLE_TEMPLATE else "generic", bulk=bulk,
+        grid=max(1, min(tiles, sms * per_sm)), smem_bytes=smem,
+    )
+
+
+def plan_for(value: torch.Tensor, grids: torch.Tensor, weights: torch.Tensor) -> DeformPlan:
+    """``deform_plan`` for these CUDA tensors: their shapes, dtypes and
+    pointers, and their card's multiprocessors."""
+    b, q, nh, nl, npts, _ = grids.shape
+    return deform_plan(b, q, nh, value.shape[2] // nh, nl, npts, value.dtype, weights.dtype,
+                       alignment(value.data_ptr()),
+                       tables_align=min(alignment(grids.data_ptr()), alignment(weights.data_ptr())),
+                       sms=torch.cuda.get_device_properties(value.device).multi_processor_count)
+
+
 def deform_gather(value: torch.Tensor, spatial_shapes: Shapes, grids: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
     """(B, S, nh*dh) value, level shapes, (B, Q, nh, nl, P, 2) f32 grids and
     (B, Q, nh, nl, P) weights -> (B, Q, nh, dh) f32.
 
     CPU tensors take ``deform_gather_ref``. CUDA tensors launch the kernel on
-    the current stream, all levels in one launch; ``deform_gather.launches``
-    counts those launches.
+    the current stream with ``deform_plan``'s launch, all levels in one
+    launch; ``deform_gather.launches`` counts those launches.
     """
     if value.device.type == "cpu":
         return deform_gather_ref(value, spatial_shapes, grids, weights)
@@ -158,11 +269,14 @@ def deform_gather(value: torch.Tensor, spatial_shapes: Shapes, grids: torch.Tens
     out = torch.empty((b, q, nh, dh), dtype=torch.float32, device=value.device)
     if out.numel() == 0:
         return out
+    lib = load_library()
+    plan = plan_for(value, grids, weights)
     levels = (ctypes.c_int * (2 * nl))(*(n for hw in spatial_shapes for n in hw))
-    err = load_library().vlfm_deform_gather(
+    err = lib.vlfm_deform_gather(
         value.data_ptr(), grids.data_ptr(), weights.data_ptr(), out.data_ptr(), levels, nl,
         b, value.shape[1], q, nh, dh, npts, _DTYPE_CODES[value.dtype], _DTYPE_CODES[weights.dtype],
-        torch.cuda.current_stream(value.device).cuda_stream,
+        plan.vec, plan.lanes, plan.chunks, plan.warps, SAMPLE_TEMPLATE if plan.samples != "generic" else 0,
+        int(plan.bulk), plan.grid, plan.smem_bytes, torch.cuda.current_stream(value.device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"deform_gather kernel launch failed: cudaError {err}")

@@ -94,8 +94,11 @@ def fuse_view(
     cosines: torch.Tensor,  # (C,)
     depth: torch.Tensor,  # (H, W) normalized [0, 1]
     tf_camera_to_episodic: torch.Tensor,  # (4, 4)
+    explored: torch.Tensor,  # (S, S) bool, the obstacle map's explored area after this view
 ) -> VM.ValueMapState:
-    """One value-map update with the policy's camera and fusion settings."""
+    """One value-map update with the policy's camera and fusion settings;
+    with ``cfg.sync_explored_areas`` the value map is cut to ``explored``
+    (vlfm_tpu/policy/itm.py:157)."""
     cam = cfg.camera
     return VM.update(
         state,
@@ -108,6 +111,7 @@ def fuse_view(
         cam.hfov,
         use_max_confidence=cfg.use_max_confidence,
         fusion_type=FUSION_TYPES[cfg.map_fusion_type],
+        explored=explored if cfg.sync_explored_areas else None,
     )
 
 
