@@ -19,7 +19,7 @@ Phases (any failure raises, and the script exits non-zero):
      the card (K1, K3) give the same cosines;
   5. tiny obstacle map: the same spin frames update a small map on the CPU
      and on the card; the grids agree but for cone-edge flips, and the
-     frontiers agree;
+     frontiers agree (the maps are batch-first; phases 5-8 run one lane);
   6. main path at full width: BLIP2-ITM (EVA ViT-g/14 + Q-Former, random
      bf16 weights) scores a 12-view spin of the synthetic environment; each
      view updates the obstacle map (frontiers) and fuses into the value map;
@@ -63,7 +63,22 @@ Phases (any failure raises, and the script exits non-zero):
      a non-COCO target at the config threshold and at 0, and a COCO
      target; K4 launches 12 times per GroundingDINO detect call;
  16. GroundingDINO timings: one detect call at B=8 (wall, and device time
-     under torch.profiler with K4's share) and one pipeline call.
+     under torch.profiler with K4's share) and one pipeline call;
+ 17. the batched spin at full width: 8 lanes (spins of two_room_plan seeds
+     0-7, 12 views each), ITM cosines for the 96 frames in calls of 32 (K1,
+     K3), per view the batched obstacle-map update and fusion (the fusion
+     and the window helpers under set_sync_debug_mode("error")), then the
+     batched decision; each lane equals a B=1 run bit for bit; launches,
+     host syncs, wall and device time per update and per fusion at B=1 and
+     B=8;
+ 18. the object map at full width: phase 11's non-COCO call at threshold 0
+     gives (8, 8, 480, 640) masks (K1, K2); update_objects on the 8 lanes
+     (64 slots x 512 points, keys fold_in(PRNGKey(lane), step), where lane
+     i holds view i of the spin, taken at step i) equals each lane alone;
+     cursors count the accepted detections; timings. Random SAM weights
+     give speckle that the mask erosion clears, so that case must accept
+     nothing, and the same detections' boxes, as masks, run the case where
+     points are accepted.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -79,6 +94,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -86,6 +102,7 @@ import torch.nn.functional as F
 
 from vlfm_tpu_torch.config import VLFMConfig
 from vlfm_tpu_torch.kernels.build import load_library
+from vlfm_tpu_torch.mapping import object_map as OBJ
 from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
@@ -110,11 +127,13 @@ from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_re
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance, plan_for
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear
+from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.policy import acyclic as AC
-from vlfm_tpu_torch.policy.itm import TURN_LEFT, decide, fuse_view, update_obstacles
+from vlfm_tpu_torch.policy.itm import TURN_LEFT, decide, fuse_view, update_objects, update_obstacles
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, two_room_plan
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
 
@@ -250,6 +269,9 @@ PARENT_K4_MS = {  # case -> ms
 FAR_SHARE = 0.01  # grids at +-1e6: far off every map
 TINY_GDINO_BOX_ATOL = 1e-4
 K4_PER_DETECT = deformable_attentions(GroundingDinoConfig())  # 6 encoder + 6 decoder layers
+BATCH_LANES = 8  # phase 17: episodes in one batch
+ITM_BATCH = 32  # phase 17: frames per ITM call
+OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
 
 
 def log(msg: str) -> None:
@@ -452,52 +474,66 @@ def phase_tiny_model() -> None:
 
 
 # --- phase 5 -----------------------------------------------------------------
-def spin_views(n: int, width: int = 640, height: int = 480) -> list[dict]:
-    env = FakeObjectNavEnv(two_room_plan(seed=0), EnvConfig(width=width, height=height))
+def spin_views(n: int, width: int = 640, height: int = 480, seed: int = 0) -> list[dict]:
+    env = FakeObjectNavEnv(two_room_plan(seed=seed), EnvConfig(width=width, height=height))
     views = [env.reset()]
     views += [env.step(TURN_LEFT) for _ in range(n - 1)]
     return views
 
 
 def view_inputs(views, cfg: VLFMConfig, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """(camera-to-episodic transform, normalized depth) of each view."""
+    """(camera-to-episodic transform (1, 4, 4), normalized depth (1, H, W))
+    of each view: one lane of the maps' batch-first API."""
     out = []
     for o in views:
         xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cfg.camera.camera_height],
                            dtype=torch.float32, device=device)
         tf = xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32, device=device))
-        out.append((tf, torch.from_numpy(o["depth"].astype(np.float32)).to(device)))
+        out.append((tf[None], torch.from_numpy(o["depth"].astype(np.float32)).to(device)[None]))
     return out
 
 
 def spin_obstacles(inputs, spec: GridSpec2D, cfg: VLFMConfig, device) -> OM.ObstacleMapState:
     """The obstacle-map half of the spin: one update per view."""
-    state = OM.create(spec, cfg.max_frontiers, device=device)
+    state = OM.create(spec, cfg.max_frontiers, batch=inputs[0][0].shape[0], device=device)
     for steps, (tf, depth) in enumerate(inputs):
         state = update_obstacles(state, spec, cfg, depth, tf, steps)
     return state
 
 
+def without_host_sync(fn):
+    """Run ``fn`` with every host synchronisation an error."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
 def spin_maps(inputs, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig):
-    """Per view, the obstacle-map update and the value-map fusion, as the
-    policy step runs them (vlfm_tpu/policy/itm.py:124-156)."""
-    obstacle = OM.create(spec, cfg.max_frontiers, device=DEV)
-    value = VM.create(spec, cfg.value_channels, device=DEV)
-    for steps, ((tf, depth), cos) in enumerate(zip(inputs, cosines.to(DEV))):
+    """Per view, the obstacle-map update and the value-map fusion of B
+    lanes, as the policy step runs them (vlfm_tpu/policy/itm.py:124-156);
+    the fusion with no host synchronisation. ``cosines`` is (B, views, C)."""
+    b = inputs[0][0].shape[0]
+    cosines = cosines.to(DEV)
+    obstacle = OM.create(spec, cfg.max_frontiers, batch=b, device=DEV)
+    value = VM.create(spec, cfg.value_channels, batch=b, device=DEV)
+    for steps, (tf, depth) in enumerate(inputs):
         obstacle = update_obstacles(obstacle, spec, cfg, depth, tf, steps)
-        fuse_view(value, spec, cfg, cos, depth, tf, obstacle.explored)
+        without_host_sync(lambda: fuse_view(value, spec, cfg, cosines[:, steps], depth, tf, obstacle.explored))
     return obstacle, value
 
 
-def spin_decision(views, obstacle: OM.ObstacleMapState, value: VM.ValueMapState, spec: GridSpec2D):
-    """Score the obstacle map's frontiers on the value map and choose one."""
-    last = views[-1]
+def spin_decision(last_views, obstacle: OM.ObstacleMapState, value: VM.ValueMapState, spec: GridSpec2D):
+    """Score each lane's frontiers on its value map and choose one, from
+    each lane's last view."""
+    b = len(last_views)
     return decide(
         value, spec, obstacle,
-        torch.tensor(last["robot_xy"], dtype=torch.float32, device=DEV),
-        torch.tensor(last["heading"], dtype=torch.float32, device=DEV),
-        torch.zeros(2, device=DEV), torch.tensor(-math.inf, device=DEV),
-        AC.create(device=DEV),
+        torch.from_numpy(np.array([o["robot_xy"] for o in last_views], np.float32)).to(DEV),
+        torch.tensor([o["heading"] for o in last_views], dtype=torch.float32, device=DEV),
+        torch.zeros(b, 2, device=DEV), torch.full((b,), -math.inf, device=DEV),
+        AC.create(batch=b, device=DEV),
     )
 
 
@@ -537,8 +573,8 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     cosines = engine.score(rgb, TARGET)
     torch.cuda.synchronize()
     image = dict(layer_norm=layer_norm.launches - text["layer_norm"], attention=attention.launches - text["attention"])
-    obstacle, value = spin_maps(inputs, cosines, spec, cfg)
-    dec = spin_decision(views, obstacle, value, spec)
+    obstacle, value = spin_maps(inputs, cosines[None], spec, cfg)
+    dec = spin_decision(views[-1:], obstacle, value, spec)
     action = int(dec.action)
     wall = time.perf_counter() - t0
     launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
@@ -567,7 +603,7 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     )
     check(bool(valid.any()), "the obstacle map has no valid frontier")
     log(
-        f"[main] chose frontier {[round(v, 3) for v in dec.choice.frontier.tolist()]}, value "
+        f"[main] chose frontier {[round(v, 3) for v in dec.choice.frontier[0].tolist()]}, value "
         f"{float(dec.choice.value):.5f}, rho {float(dec.rho):.3f} theta {float(dec.theta):.3f}, "
         f"action {action}; wall {wall:.2f} s incl. first calls"
     )
@@ -583,10 +619,10 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
 def phase_value_map_check(views, spec, cfg) -> None:
     cos = torch.full((len(views), cfg.value_channels), 0.1)
     cos[HIGH_VIEW] = 0.9
-    obstacle, value = spin_maps(view_inputs(views, cfg, DEV), cos, spec, cfg)
-    dec = spin_decision(views, obstacle, value, spec)
+    obstacle, value = spin_maps(view_inputs(views, cfg, DEV), cos[None], spec, cfg)
+    dec = spin_decision(views[-1:], obstacle, value, spec)
     robot = views[-1]["robot_xy"]
-    fx, fy = dec.choice.frontier.tolist()
+    fx, fy = dec.choice.frontier[0].tolist()
     off = math.remainder(math.atan2(fy - robot[1], fx - robot[0]) - views[HIGH_VIEW]["heading"], 2 * math.pi)
     log(
         f"[value-map] injected high cosine at view {HIGH_VIEW}: chose frontier ({fx:.2f}, {fy:.2f}) at "
@@ -614,8 +650,8 @@ def spin_step_fns(views, engine: PerceptionEngine, spec, cfg):
     inputs = view_inputs(views, cfg, DEV)
 
     def step():
-        obstacle, value = spin_maps(inputs, engine.score(rgb, TARGET), spec, cfg)
-        return spin_decision(views, obstacle, value, spec)
+        obstacle, value = spin_maps(inputs, engine.score(rgb, TARGET)[None], spec, cfg)
+        return spin_decision(views[-1:], obstacle, value, spec)
 
     return step, lambda: spin_obstacles(inputs, spec, cfg, DEV)
 
@@ -1080,6 +1116,210 @@ def phase_gdino_timing(cfg, adapter, sam, rgb, smi: str) -> None:
         f"(wall, median of 10) on {smi}")
 
 
+# --- phase 17 ----------------------------------------------------------------
+def lane_inputs(lane_views, cfg: VLFMConfig) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    """Per view, the (B, 4, 4) poses and (B, H, W) depths of B lanes."""
+    per_lane = [view_inputs(views, cfg, DEV) for views in lane_views]
+    return [(torch.cat([p[v][0] for p in per_lane]), torch.cat([p[v][1] for p in per_lane]))
+            for v in range(len(lane_views[0]))]
+
+
+def launch_profile(fn) -> tuple[int, int, float, float]:
+    """(kernels, copies and sets, device busy ms, wall ms) of one call of
+    ``fn`` under torch.profiler."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    dev = device_events(prof)
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return len(kernels), len(dev) - len(kernels), busy_ms(dev), wall
+
+
+def host_syncs(fn) -> int:
+    """Host synchronisations in one call of ``fn``: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, each one caught."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
+
+
+def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
+    b = BATCH_LANES
+    lane_views = [spin_views(SPIN_VIEWS, seed=lane) for lane in range(b)]
+    rgb = torch.from_numpy(np.stack([o["rgb"] for views in lane_views for o in views])).to(DEV)
+    layer_norm.launches = attention.launches = 0
+    cos = torch.cat([engine.score(rgb[i:i + ITM_BATCH], TARGET) for i in range(0, len(rgb), ITM_BATCH)])
+    cos = cos.float().reshape(b, SPIN_VIEWS, -1)
+    inputs = lane_inputs(lane_views, cfg)
+    last = [views[-1] for views in lane_views]
+    obstacle, value = spin_maps(inputs, cos, spec, cfg)
+    dec = spin_decision(last, obstacle, value, spec)
+    torch.cuda.synchronize()
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    calls = len(rgb) // ITM_BATCH
+    log(f"[batched] {b} lanes x {SPIN_VIEWS} views (two_room_plan seeds 0-{b - 1}): ITM on {len(rgb)} frames in "
+        f"{calls} calls of {ITM_BATCH}; K1 {launches['layer_norm']} (expect {calls * LAUNCHES_IMAGE}), "
+        f"K3 {launches['attention']} (expect {calls * ATTN_LAUNCHES_IMAGE})")
+    check(launches == dict(layer_norm=calls * LAUNCHES_IMAGE, attention=calls * ATTN_LAUNCHES_IMAGE),
+          "batched spin ITM launch counts")
+
+    # Each lane against a B = 1 run of the same lane, bit for bit.
+    for lane in range(b):
+        one = [(tf[lane:lane + 1], depth[lane:lane + 1]) for tf, depth in inputs]
+        o1, v1 = spin_maps(one, cos[lane:lane + 1], spec, cfg)
+        d1 = spin_decision(last[lane:lane + 1], o1, v1, spec)
+        same = [torch.equal(x[lane], y[0]) for x, y in zip(obstacle, o1)]
+        same += [torch.equal(x[lane], y[0]) for x, y in zip(value, v1)]
+        same += [torch.equal(x[lane], y[0]) for x, y in
+                 ((dec.waypoint_values, d1.waypoint_values), (dec.rho, d1.rho), (dec.theta, d1.theta),
+                  (dec.action, d1.action), (dec.choice.frontier, d1.choice.frontier),
+                  (dec.choice.value, d1.choice.value), (dec.choice.acyclic.keys, d1.choice.acyclic.keys))]
+        check(all(same), f"batched spin: lane {lane} differs from its B=1 run ({same})")
+    n_front = obstacle.frontiers_valid.sum(dim=1).tolist()
+    log(f"[batched] every lane equals its B=1 run bit for bit (grids, frontiers, values, decision); frontiers "
+        f"per lane {n_front}, actions {dec.action.tolist()}")
+    check(min(n_front) > 0 and bool(dec.choice.any_valid.all()), "a lane of the batched spin found no frontier")
+
+    # Per view at B = 1 and B = 8: launches, host syncs, wall and device time.
+    v = SPIN_VIEWS - 1
+    rows = {}
+    for lanes in (1, b):
+        o, val = spin_maps([(tf[:lanes], d[:lanes]) for tf, d in inputs], cos[:lanes], spec, cfg)
+        tf, depth = inputs[v][0][:lanes], inputs[v][1][:lanes]
+        state = {"obstacle": o}
+
+        def om():
+            state["obstacle"] = update_obstacles(o, spec, cfg, depth, tf, v)
+
+        def fuse():
+            fuse_view(val, spec, cfg, cos[:lanes, v], depth, tf, state["obstacle"].explored)
+
+        def windows():
+            rc = spec.to_storage(spec.xy_to_px(tf[:, :2, 3]))
+            for arr, window in ((val.conf, 256), (o.navigable, 224)):
+                at = window_index(rc, window, arr.shape[1])
+                write_window(arr, read_window(arr, at), at)
+
+        without_host_sync(windows)
+        row = {}
+        for name, fn in (("obstacle-map update", om), ("fusion", fuse), ("view (update + fusion)",
+                                                                          lambda: (om(), fuse()))):
+            kernels, copies, busy, wall = launch_profile(fn)
+            ms = wall_ms(fn, reps=5, warmup=1)
+            row[name] = dict(kernels=kernels, copies=copies, syncs=host_syncs(fn), ms=ms, per_lane=ms / lanes,
+                             device_ms=busy, idle=1 - busy / wall)
+            r = row[name]
+            log(f"[batched-time] B={lanes} {name}: {r['kernels']} kernel launches + {r['copies']} copies/sets, "
+                f"{r['syncs']} host syncs, {r['ms']:.2f} ms wall (median of 5), {r['per_lane']:.2f} ms per lane; "
+                f"under the profiler {r['device_ms']:.2f} ms of device time, idle share {r['idle']:.3f}; on {smi}")
+        rows[lanes] = row
+        del o, val, state
+    check(rows[b]["fusion"]["syncs"] == 0 and rows[1]["fusion"]["syncs"] == 0, "the fusion synchronised the host")
+    return launches
+
+
+# --- phase 18 ----------------------------------------------------------------
+def box_masks(xyxy: torch.Tensor, valid: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, K, H, W) masks that fill each valid detection's normalized box."""
+    rows = torch.arange(h, device=xyxy.device)[:, None] + 0.5
+    cols = torch.arange(w, device=xyxy.device)[None, :] + 0.5
+    x0, y0, x1, y1 = (xyxy[..., i, None, None] for i in range(4))
+    inside = (cols >= x0 * w) & (cols < x1 * w) & (rows >= y0 * h) & (rows < y1 * h)
+    return inside & valid[..., None, None]
+
+
+def object_map_case(name, masks, valid, depth, tf, keys, cfg: VLFMConfig, spec, smi: str) -> int:
+    """update_objects on all lanes and on each lane alone; returns the
+    accepted detections."""
+    b = masks.shape[0]
+    robot = tf[:, :2, 3].contiguous()
+
+    def run(lanes):
+        objmap = OBJ.create(cfg.object_map_slots, cfg.object_map_points_per_slot, batch=len(lanes), device=DEV)
+        return update_objects(objmap, spec, cfg, depth[lanes], masks[lanes], valid[lanes], tf[lanes], robot[lanes],
+                              keys[lanes])
+
+    every = list(range(b))
+    detected, goal, objmap = run(every)
+    inserted = OBJ.update_batch(
+        OBJ.create(cfg.object_map_slots, cfg.object_map_points_per_slot, batch=b, device=DEV), keys, depth, masks,
+        valid, tf, cfg.camera.min_depth, cfg.camera.max_depth, cfg.camera.fx, cfg.camera.fy,
+        erosion_size=cfg.object_map_erosion_size, use_dbscan=cfg.use_object_map_dbscan)
+    torch.cuda.synchronize()
+    accepted = inserted.slot_used.sum(dim=1)
+    log(f"[objmap] {name}: B={b} lanes, {cfg.object_map_slots} slots x {cfg.object_map_points_per_slot} points: "
+        f"accepted detections per lane {accepted.tolist()}, cursors {objmap.cursor.tolist()}, has_object "
+        f"{detected.int().tolist()}, {int(objmap.point_valid.sum())} valid points after the eviction")
+    check(torch.equal(objmap.cursor, accepted.to(torch.int32)) and torch.equal(inserted.cursor, objmap.cursor),
+          f"{name}: a lane's cursor differs from its count of accepted detections")
+    check(bool((accepted <= valid.sum(dim=1)).all()), f"{name}: more accepted detections than valid masks")
+    check(bool(torch.isfinite(objmap.points).all() and torch.isfinite(goal).all()), f"{name}: points finite")
+    check(torch.equal(OBJ.has_object(inserted), accepted > 0), f"{name}: has_object where a detection was accepted")
+    worst = 0.0
+    for lane in every:
+        d1, g1, o1 = run([lane])
+        for field in ("point_valid", "point_in_range", "slot_used", "cursor", "has_last_target"):
+            check(torch.equal(getattr(objmap, field)[lane], getattr(o1, field)[0]), f"{name} lane {lane}: {field}")
+        check(bool(detected[lane] == d1[0]), f"{name} lane {lane}: has_object")
+        worst = max(worst, float((objmap.points[lane] - o1.points[0]).abs().max()),
+                    float((goal[lane] - g1[0]).abs().max()))
+    log(f"[objmap] {name}: B={b} equals B=1 per lane, slots and validity exactly, points within {worst:.3e} m "
+        f"(tol {OBJ_POINT_ATOL})")
+    check(worst <= OBJ_POINT_ATOL, f"{name}: the object map at B={b} differs from B=1")
+    ms = wall_ms(lambda: run(every), reps=5, warmup=1)
+    _, _, busy, wall = launch_profile(lambda: run(every))
+    log(f"[objmap-time] {name}: update_objects at B={b}: {ms:.2f} ms wall (median of 5); under the profiler "
+        f"{busy:.2f} ms of device time, idle share {1 - busy / wall:.3f}; on {smi}")
+    return int(accepted.sum())
+
+
+def phase_object_map(det_cfg, det, sam, smi: str) -> dict:
+    b = DET_BATCH
+    cfg = VLFMConfig()
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    views = spin_views(b)
+    rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
+    pipe = make_pipeline(det, sam, det_cfg, det_cfg.sam_frame_capacity, non_coco_threshold=0.0)
+    layer_norm.launches = mbconv_chain.launches = 0
+    masks, valid, (xyxy, _, _) = pipe(rgb, OPEN_TARGET)
+    torch.cuda.synchronize()
+    launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches)
+    h, w = rgb.shape[1:3]
+    check(masks.shape == (b, det_cfg.max_detections_per_frame, h, w), "object-map masks shape")
+    passes = -(-int(valid.any(dim=1).sum()) // det_cfg.sam_frame_capacity)
+    check(launches == dict(layer_norm=LAUNCHES_DETECT, mbconv_chain=chain_launches(sam.cfg.tinyvit) * passes),
+          "object-map masks: K1 and K2 launch counts")
+    log(f"[objmap] masks {tuple(masks.shape)} from the {OPEN_TARGET} pipeline call at threshold 0: {int(valid.sum())} "
+        f"valid, mean coverage {float(masks.float().mean()):.3f}; K1 {launches['layer_norm']}, K2 "
+        f"{launches['mbconv_chain']} launches")
+    inputs = view_inputs(views, cfg, DEV)
+    tf = torch.cat([t for t, _ in inputs])
+    depth = torch.cat([d for _, d in inputs])
+    lanes = torch.arange(b, device=DEV)
+    steps = lanes  # lane i holds view i of the spin, taken at step i
+    keys = threefry.fold_in(threefry.PRNGKey(lanes), steps)
+    erosion = 2 * cfg.object_map_erosion_size + 1
+    sam = object_map_case("gated SAM's masks", masks, valid, depth, tf, keys, cfg, spec, smi)
+    log(f"[objmap] gated SAM's masks: {sam} accepted (expect 0: random SAM weights give speckle that the "
+        f"{erosion}x{erosion} erosion clears, so this case's B=8-equals-B=1 check compares empty maps)")
+    check(sam == 0, "gated SAM's random-weight masks were accepted into the object map")
+    boxed = object_map_case("the same detections' boxes as masks", box_masks(xyxy, valid, h, w), valid, depth, tf,
+                            keys, cfg, spec, smi)
+    log(f"[objmap] the same detections' boxes as masks: {boxed} accepted (expect > 0: they carry points through "
+        f"every step of the map)")
+    check(boxed > 0, "no box mask was accepted into the object map")
+    return launches
+
+
 def build_main_path():
     """The full-width configuration of phase 6: policy config, map grid,
     the perception engine with random bf16 weights, and the spin's views."""
@@ -1120,7 +1360,6 @@ def main() -> None:
     main_run = phase_main_path(views, engine, spec, cfg)
     phase_value_map_check(views, spec, cfg)
     phase_timing(views, engine, spec, cfg, smi)
-    del engine
 
     k2 = phase_mbconv_chain()
     phase_tiny_pipeline()
@@ -1139,6 +1378,11 @@ def main() -> None:
         f"{n_gd / 1e6:.1f} M parameters, bf16 weights")
     gdino_run = phase_gdino_path(det_cfg, adapter, det, sam, rgb)
     phase_gdino_timing(det_cfg, adapter, sam, rgb, smi)
+    del gd, adapter
+
+    batched_run = phase_batched_spin(engine, spec, cfg, smi)
+    del engine
+    objmap_run = phase_object_map(det_cfg, det, sam, smi)
 
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
     check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
@@ -1146,14 +1390,19 @@ def main() -> None:
     check(det_run["mbconv_chain"] > 0, "the detection path launched no mbconv_chain kernel")
     check(gdino_run["deform_gather"] > 0, "the GroundingDINO path launched no deform_gather kernel")
     check(gdino_run["mbconv_chain"] > 0, "the GroundingDINO path launched no mbconv_chain kernel")
+    check(batched_run["layer_norm"] > 0 and batched_run["attention"] > 0, "the batched spin launched no K1 or K3")
+    check(objmap_run["layer_norm"] > 0 and objmap_run["mbconv_chain"] > 0, "the object-map path launched no K1 or K2")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
                           {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
-                           "gdino_detection": gdino_run["layer_norm"]}, ln),
+                           "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
+                           "object_map": objmap_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
-                          {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"]}, k2),
-            kernel_record("attention", "vlfm_tpu/ops/attention.py:55", {"itm_spin": main_run["attention"]}, k3),
+                          {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
+                           "object_map": objmap_run["mbconv_chain"]}, k2),
+            kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
+                          {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

@@ -179,19 +179,19 @@ def main() -> None:
     rgb12 = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(S.DEV)
     inputs = S.view_inputs(views, cfg, S.DEV)
     cos12 = engine.score(rgb12, S.TARGET)
-    obstacle, value = S.spin_maps(inputs, cos12, spec, cfg)
+    obstacle, value = S.spin_maps(inputs, cos12[None], spec, cfg)
 
     def value_part():  # the spin's final explored area stands for each view's
         state = S.VM.create(spec, cfg.value_channels, device=S.DEV)
         for (tf, depth), cos in zip(inputs, cos12):
-            fuse_view(state, spec, cfg, cos, depth, tf, obstacle.explored)
+            fuse_view(state, spec, cfg, cos[None], depth, tf, obstacle.explored)
 
     step, obstacle_part = S.spin_step_fns(views, engine, spec, cfg)
     parts = {
         "ITM scoring of 12 views": lambda: engine.score(rgb12, S.TARGET),
         "value map, 12 fusions": value_part,
         "obstacle map, 12 updates": obstacle_part,
-        "decision over the frontiers": lambda: S.spin_decision(views, obstacle, value, spec),
+        "decision over the frontiers": lambda: S.spin_decision(views[-1:], obstacle, value, spec),
     }
     step_ms = S.wall_ms(step, reps=5, warmup=1)
     print(f"[step] 12-view spin step on {smi}: {step_ms:.2f} ms whole (wall, median of 5); by part:")

@@ -125,9 +125,9 @@ def test_value_map_update_card_matches_cpu(dev):
     for d, state in states.items():
         for k, yaw in enumerate((0.0, 0.9, -2.0)):
             tf = xyz_yaw_to_tf_matrix(torch.tensor([0.3 * k, -0.2, 0.88], device=d),
-                                      torch.tensor(yaw, device=d))
-            VM.update(state, spec, torch.tensor([0.2 + 0.3 * k, 0.5], device=d),
-                      torch.from_numpy(depth).to(d), tf, 0.5, 5.0, float(np.deg2rad(79)),
+                                      torch.tensor(yaw, device=d))[None]
+            VM.update(state, spec, torch.tensor([[0.2 + 0.3 * k, 0.5]], device=d),
+                      torch.from_numpy(depth).to(d)[None], tf, 0.5, 5.0, float(np.deg2rad(79)),
                       use_max_confidence=False)
     diff = (states[dev].values.cpu() - states["cpu"].values).abs().amax(-1)
     diff = torch.maximum(diff, (states[dev].conf.cpu() - states["cpu"].conf).abs())
@@ -406,8 +406,8 @@ def test_obstacle_map_card_matches_cpu(dev):
         for steps, o in enumerate(views):
             tf = xyz_yaw_to_tf_matrix(
                 torch.tensor([*o["robot_xy"], cfg.camera.camera_height], dtype=torch.float32, device=d),
-                torch.tensor(o["heading"], dtype=torch.float32, device=d))
-            depth = torch.from_numpy(o["depth"].astype(np.float32)).to(d)
+                torch.tensor(o["heading"], dtype=torch.float32, device=d))[None]
+            depth = torch.from_numpy(o["depth"].astype(np.float32)).to(d)[None]
             state = ITM.update_obstacles(state, spec, cfg, depth, tf, steps)
         states[d] = state
     got, want = states[dev], states["cpu"]

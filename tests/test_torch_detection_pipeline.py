@@ -127,5 +127,5 @@ def test_query_cache_and_vqa(models):
     tpipe(rgb, "fireplace")
     assert list(tpipe._query_cache) == ["toilet", "fireplace"]
     (_, _), (tdet, tsam) = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         P.DetectionPipeline(tdet, tsam, fake_encode, use_vqa=True)

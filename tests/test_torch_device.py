@@ -11,12 +11,13 @@ import pytest
 import torch
 
 from vlfm_tpu_torch.device import default_device
-from vlfm_tpu_torch.mapping import obstacle_map, value_map
+from vlfm_tpu_torch.mapping import object_map, obstacle_map, value_map
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM
 from vlfm_tpu_torch.models.grounding_dino import GroundingDinoDetector
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetector
 from vlfm_tpu_torch.models.sam import SAM
+from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.policy import acyclic
 
 CONSTRUCTORS = {
@@ -31,6 +32,8 @@ CONSTRUCTORS = {
     "value_map.create": value_map.create,
     "obstacle_map.create": obstacle_map.create,
     "obstacle_map.from_numpy": obstacle_map.from_numpy,
+    "object_map.create": object_map.create,
+    "threefry.PRNGKey": threefry.PRNGKey,
     "acyclic.create": acyclic.create,
     "GridSpec2D.zeros": GridSpec2D.zeros,
 }

@@ -119,7 +119,7 @@ def test_chip_smoke_and_profile_script_import_nothing_of_jax():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import profile_torch_step\n"
+        "import profile_torch_step, ab_spin_maps\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vlfm_tpu'))\n"
         "assert not bad, bad\n"
     )

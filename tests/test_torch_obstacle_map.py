@@ -5,7 +5,9 @@ component labelling, sparse extraction, the obstacle splat, the fog of war,
 frontier detection) on seeded numpy masks, through the JAX function and
 the port's, and then ``obstacle_map.update`` over the spin of the synthetic
 environment on a small map (256 px plus 2 x 64 px of padding: 384 columns,
-so the bit-packed branch runs). Held bit for bit, except the fog of war's
+so the bit-packed branch runs). The port's maps and ops are batch-first:
+each case runs as one lane (B = 1) against JAX's single map; many lanes
+against single ones are held in test_torch_batched_maps.py. Held bit for bit, except the fog of war's
 cone edges, where ``atan2`` differs in the last ulp between XLA and
 PyTorch: at most 0.1 % of the cells may flip there. Frontier positions in
 meters are held to 1e-6 m, because XLA's jit divides by pixels_per_meter as
@@ -130,10 +132,10 @@ def test_dilate8_packed_wraps_like_jnp_roll():
 @pytest.mark.parametrize("size", [1, 7, 64, 700])
 def test_first_set_bits_packed_match_jax(size):
     m = _packed_mask(2)
-    got = BP.first_set_bits_packed(BP.pack_cols(torch.from_numpy(m)), size)
+    got = BP.first_set_bits_packed(BP.pack_cols(torch.from_numpy(m))[None], size)
     want = JBP.first_set_bits_packed(JBP.pack_cols(jnp.asarray(m)), size)
     for g, w in zip(got, want):
-        _eq(g, w)
+        _eq(g[0], w)
 
 
 # --- flood fill and labelling ---------------------------------------------
@@ -143,7 +145,7 @@ def test_flood_from_seed_matches_jax(cols, max_iters):
     m = _serpentine(30, cols)
     seed = np.zeros_like(m)
     seed[0, 0] = True
-    got = FL.flood_from_seed(torch.from_numpy(m), torch.from_numpy(seed), max_iters=max_iters)
+    got = FL.flood_from_seed(torch.from_numpy(m)[None], torch.from_numpy(seed)[None], max_iters=max_iters)[0]
     want = JFL.flood_from_seed(jnp.asarray(m), jnp.asarray(seed), max_iters=max_iters)
     _eq(got, want)
     assert (int(got.sum()) == int(m.sum())) is (max_iters == 1024)
@@ -153,8 +155,8 @@ def test_flood_packed_hits_max_iters_like_jax():
     m = _serpentine(30, 64)
     seed = np.zeros_like(m)
     seed[0, 0] = True
-    mp, sp = BP.pack_cols(torch.from_numpy(m)), BP.pack_cols(torch.from_numpy(seed))
-    got = BP.flood_packed(mp, sp, max_iters=40, check_every=8)
+    mp, sp = BP.pack_cols(torch.from_numpy(m)[None]), BP.pack_cols(torch.from_numpy(seed)[None])
+    got = BP.flood_packed(mp, sp, max_iters=40, check_every=8)[0]
     want = JBP.flood_packed(JBP.pack_cols(jnp.asarray(m)), JBP.pack_cols(jnp.asarray(seed)),
                             max_iters=40, check_every=8)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want).astype(np.int64))
@@ -164,16 +166,17 @@ def test_flood_packed_hits_max_iters_like_jax():
 @pytest.mark.parametrize("max_iters", [4, 64])
 def test_label_components_and_sizes_match_jax(max_iters):
     m = _blobs((40, 52), 3) | _serpentine(40, 52) & _mask((40, 52), 0.9, 4)
-    labels = FL.label_components(torch.from_numpy(m), max_iters)
+    labels = FL.label_components(torch.from_numpy(m)[None], max_iters)
     jlabels = JFL.label_components(jnp.asarray(m), max_iters)
-    _eq(labels, jlabels)
-    _eq(FL.component_sizes(labels, torch.from_numpy(m)), JFL.component_sizes(jlabels, jnp.asarray(m)))
+    _eq(labels[0], jlabels)
+    _eq(FL.component_sizes(labels, torch.from_numpy(m)[None])[0], JFL.component_sizes(jlabels, jnp.asarray(m)))
 
 
 @pytest.mark.parametrize("thresh,max_roots", [(40.0, 128), (300.0, 128), (300.0, 3)])
 def test_remove_small_components_coarse_matches_jax(thresh, max_roots):
     m = _blobs((96, 128), 5, n=14)
-    got = FL.remove_small_components_coarse(torch.from_numpy(m), thresh, max_iters=12, max_roots=max_roots)
+    got = FL.remove_small_components_coarse(torch.from_numpy(m)[None], thresh, max_iters=12,
+                                            max_roots=max_roots)[0]
     want = JFL.remove_small_components_coarse(jnp.asarray(m), jnp.float32(thresh), max_iters=12,
                                               max_roots=max_roots)
     _eq(got, want)
@@ -183,10 +186,10 @@ def test_remove_small_components_coarse_matches_jax(thresh, max_roots):
 @pytest.mark.parametrize("n,p,size", [(3000, 0.01, 64), (3000, 0.5, 64), (200_000, 0.4, 96), (77, 0.0, 5)])
 def test_first_nonzero_indices_match_jax_and_bisection(n, p, size):
     m = _mask((n,), p, n)
-    idx, valid = SP.first_nonzero_indices(torch.from_numpy(m), size)
+    idx, valid = SP.first_nonzero_indices(torch.from_numpy(m)[None], size)
     jidx, jvalid = JSP.first_nonzero_indices(jnp.asarray(m), size)
-    _eq(idx, jidx)
-    _eq(valid, jvalid)
+    _eq(idx[0], jidx)
+    _eq(valid[0], jvalid)
     t = torch.arange(1, size + 1)
     dense, total = SP._nth_set_bit_dense(torch.from_numpy(m), t)
     bisect = torch.searchsorted(torch.cumsum(torch.from_numpy(m).long(), 0), t)
@@ -196,9 +199,9 @@ def test_first_nonzero_indices_match_jax_and_bisection(n, p, size):
 
 def test_first_nonzero_coords_match_jax():
     m = _mask((45, 70), 0.02, 9)
-    for g, w in zip(SP.first_nonzero_coords(torch.from_numpy(m), 50),
+    for g, w in zip(SP.first_nonzero_coords(torch.from_numpy(m)[None], 50),
                     JSP.first_nonzero_coords(jnp.asarray(m), 50)):
-        _eq(g, w)
+        _eq(g[0], w)
 
 
 # --- obstacle splat and fog of war ----------------------------------------
@@ -208,8 +211,8 @@ def test_splat_depth_to_window_matches_jax(yaw):
     depth = rng.uniform(0.5, 6.5, (60, 80)).astype(np.float32)
     in_band = rng.random((60, 80)) < 0.3
     fx = 80 / (2 * np.tan(np.deg2rad(79.0) / 2))
-    got = splat_depth_to_window(torch.from_numpy(depth), torch.from_numpy(in_band),
-                                torch.tensor(yaw, dtype=torch.float32), fx, 5.0, window=288)
+    got = splat_depth_to_window(torch.from_numpy(depth)[None], torch.from_numpy(in_band)[None],
+                                torch.tensor([yaw], dtype=torch.float32), fx, 5.0, window=288)[0]
     want = jax_splat(jnp.asarray(depth), jnp.asarray(in_band), jnp.float32(yaw), jnp.float32(fx),
                      jnp.float32(5.0), window=288, pixels_per_meter=20)
     assert got.numpy().sum() > 100
@@ -220,7 +223,8 @@ def test_splat_depth_to_window_matches_jax(yaw):
 def test_fog_of_war_matches_jax_up_to_cone_edges(heading):
     nav = ~M.dilate(torch.from_numpy(_mask((224, 224), 0.002, 12)), 5).numpy()
     fov = float(np.deg2rad(79.0))
-    got = reveal_fog_of_war_window(torch.from_numpy(nav), torch.tensor(heading, dtype=torch.float32), fov, 100.0)
+    got = reveal_fog_of_war_window(torch.from_numpy(nav)[None], torch.tensor([heading], dtype=torch.float32), fov,
+                                   100.0)[0]
     want = np.asarray(jax_reveal(jnp.asarray(nav), jnp.float32(heading), jnp.float32(fov), jnp.float32(100.0)))
     assert want.sum() > 500
     assert (got.numpy() != want).sum() <= EDGE_FLIP_FRACTION * want.size
@@ -240,13 +244,13 @@ def _frontier_scene(s, seed):
 @pytest.mark.parametrize("s,max_cells", [(128, 512), (120, 512), (128, 64)])  # packed, dense, overflow
 def test_detect_frontiers_matches_jax(s, max_cells):
     nav, expl = _frontier_scene(s, 13)
-    got = FR.detect_frontiers(torch.from_numpy(nav), torch.from_numpy(expl), 48.0,
+    got = FR.detect_frontiers(torch.from_numpy(nav)[None], torch.from_numpy(expl)[None], 48.0,
                               max_cells=max_cells, max_frontiers=8)
     want = JFR.detect_frontiers(jnp.asarray(nav), jnp.asarray(expl), jnp.float32(48.0),
                                 max_cells=max_cells, max_frontiers=8)
     for name in ("waypoints_px", "valid", "sizes", "overflow"):
-        _eq(getattr(got, name), getattr(want, name))
-    assert bool(got.overflow) is (max_cells == 64)
+        _eq(getattr(got, name)[0], getattr(want, name))
+    assert bool(got.overflow[0]) is (max_cells == 64)
     assert int(got.valid.sum()) >= (1 if max_cells == 64 else 2)
 
 
@@ -259,7 +263,12 @@ def _tf(o, jax_side):
     xyz = np.array([o["robot_xy"][0], o["robot_xy"][1], CFG.camera.camera_height], np.float32)
     if jax_side:
         return JG.xyz_yaw_to_tf_matrix(jnp.asarray(xyz), jnp.float32(o["heading"]))
-    return G.xyz_yaw_to_tf_matrix(torch.from_numpy(xyz), torch.tensor(o["heading"], dtype=torch.float32))
+    return G.xyz_yaw_to_tf_matrix(torch.from_numpy(xyz), torch.tensor(o["heading"], dtype=torch.float32))[None]
+
+
+def _depth(o):
+    """One lane's depth, (1, H, W)."""
+    return torch.from_numpy(o["depth"].astype(np.float32))[None]
 
 
 def _jax_update(state, o, steps):
@@ -273,12 +282,13 @@ def _jax_update(state, o, steps):
 
 
 def _assert_state_close(got: OM.ObstacleMapState, want):
+    """Lane 0 of the port's state against JAX's single state."""
     for name in ("obstacles", "navigable", "explored"):
-        flips = int((getattr(got, name).numpy() != np.asarray(getattr(want, name))).sum())
+        flips = int((getattr(got, name)[0].numpy() != np.asarray(getattr(want, name))).sum())
         assert flips <= EDGE_FLIP_FRACTION * 224 * 224, f"{name}: {flips} cells differ"
-    _eq(got.frontiers_valid, want.frontiers_valid)
-    _eq(got.frontier_overflow, want.frontier_overflow)
-    np.testing.assert_allclose(got.frontiers_xy.numpy(), np.asarray(want.frontiers_xy), atol=1e-6, rtol=0)
+    _eq(got.frontiers_valid[0], want.frontiers_valid)
+    _eq(got.frontier_overflow[0], want.frontier_overflow)
+    np.testing.assert_allclose(got.frontiers_xy[0].numpy(), np.asarray(want.frontiers_xy), atol=1e-6, rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -296,8 +306,7 @@ def test_update_over_the_spin_matches_jax(spin_views):
     state = OM.create(SPEC, TCFG.max_frontiers, device="cpu")
     for steps, (jo, o) in enumerate(zip(jviews, tviews)):
         jstate = _jax_update(jstate, jo, steps)
-        state = ITM.update_obstacles(state, SPEC, TCFG, torch.from_numpy(o["depth"].astype(np.float32)),
-                                     _tf(o, False), steps)
+        state = ITM.update_obstacles(state, SPEC, TCFG, _depth(o), _tf(o, False), steps)
         _assert_state_close(state, jstate)
     assert int(state.frontiers_valid.sum()) >= 3 and int(state.obstacles.sum()) > 500
 
@@ -309,20 +318,18 @@ def test_update_from_a_mid_episode_map_matches_jax(spin_views):
     jstate = JOM.create(JSPEC, CFG.max_frontiers)
     for steps in range(3):
         jstate = _jax_update(jstate, jviews[steps], steps)
-    state = OM.from_numpy(jstate, device="cpu")
+    state = OM.from_numpy([np.asarray(a)[None] for a in jstate], device="cpu")
     _assert_state_close(state, jstate)
     for view, steps in ((3, 3), (4, 8)):  # step 8: full prune
         jstate = _jax_update(jstate, jviews[view], steps)
-        o = tviews[view]
-        state = ITM.update_obstacles(state, SPEC, TCFG, torch.from_numpy(o["depth"].astype(np.float32)),
-                                     _tf(o, False), steps)
+        state = ITM.update_obstacles(state, SPEC, TCFG, _depth(tviews[view]), _tf(tviews[view], False), steps)
         _assert_state_close(state, jstate)
     cam = CFG.camera
     o, jo = tviews[5], jviews[5]
     jnext = JOM.update(jstate, JSPEC, jnp.asarray(jo["depth"], jnp.float32), _tf(jo, True), cam.min_depth,
                        cam.max_depth, cam.fx, cam.fy, cam.hfov, CFG.min_obstacle_height,
                        CFG.max_obstacle_height, CFG.obstacle_map_area_threshold, explore=False)
-    nxt = OM.update(state, SPEC, torch.from_numpy(o["depth"].astype(np.float32)), _tf(o, False),
+    nxt = OM.update(state, SPEC, _depth(o), _tf(o, False),
                     cam.min_depth, cam.max_depth, cam.fx, cam.fy, cam.hfov, CFG.min_obstacle_height,
                     CFG.max_obstacle_height, CFG.obstacle_map_area_threshold, explore=False)
     _assert_state_close(nxt, jnext)
@@ -331,11 +338,11 @@ def test_update_from_a_mid_episode_map_matches_jax(spin_views):
 def test_create_reset_and_helpers_match_jax():
     state = OM.create(SPEC, 8, device="cpu")
     for got, want in zip(state, JOM.create(JSPEC, 8)):
-        _eq(got, want)
-    state.obstacles[3, 4] = True
-    state.frontiers_valid[1] = True
+        _eq(got[0], want)
+    state.obstacles[0, 3, 4] = True
+    state.frontiers_valid[0, 1] = True
     for got, want in zip(OM.reset(state), JOM.create(JSPEC, 8)):
-        _eq(got, want)
+        _eq(got[0], want)
     assert OM._agent_kernel_size(SPEC, 0.18) == JOM._agent_kernel_size(JSPEC, 0.18) == 7
     assert OM._agent_kernel_size(SPEC, 0.2) == JOM._agent_kernel_size(JSPEC, 0.2)
     for frac in (0.1, 0.5):

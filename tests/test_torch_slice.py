@@ -12,6 +12,7 @@ cells on an ulp tie, at most 0.1 % of the cells updated), the frontiers
 (their validity exactly, their position to 1e-6 m), waypoint values to
 1e-4, and the same chosen frontier and action; also with
 ``sync_explored_areas``, which cuts the value map to the explored area.
+The port runs the spin as one lane (B = 1) of its batch-first API.
 """
 
 import dataclasses
@@ -132,13 +133,13 @@ def run_torch(views, cosines, sync_explored=False):
     state = VM.create(SPEC, TCFG.value_channels, device="cpu")
     for steps, (o, c) in enumerate(zip(views, cosines)):
         xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height])
-        tf = G.xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32))
-        depth = torch.from_numpy(o["depth"].astype(np.float32))
+        tf = G.xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32))[None]
+        depth = torch.from_numpy(o["depth"].astype(np.float32))[None]
         obstacle = ITM.update_obstacles(obstacle, SPEC, cfg, depth, tf, steps)
-        ITM.fuse_view(state, SPEC, cfg, c, depth, tf, obstacle.explored)
+        ITM.fuse_view(state, SPEC, cfg, c[None], depth, tf, obstacle.explored)
     robot, heading = _robot(views)
-    dec = ITM.decide(state, SPEC, obstacle, torch.from_numpy(robot), torch.tensor(heading), torch.zeros(2),
-                     torch.tensor(-np.inf), AC.create(device="cpu"))
+    dec = ITM.decide(state, SPEC, obstacle, torch.from_numpy(robot)[None], torch.tensor([heading]),
+                     torch.zeros(1, 2), torch.tensor([-np.inf]), AC.create(device="cpu"))
     return obstacle, state, dec
 
 
@@ -160,24 +161,24 @@ def _compare(views, jcos, tcos, sync_explored=False):
     jviews, tviews = views
     jobs, jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos, sync_explored)
     tobs, tstate, dec = run_torch(tviews, tcos, sync_explored)
-    _assert_map_close(tstate.conf.numpy(), jstate.conf, len(tviews))
-    _assert_map_close(tstate.values.numpy(), jstate.values, len(tviews))
+    _assert_map_close(tstate.conf[0].numpy(), jstate.conf, len(tviews))
+    _assert_map_close(tstate.values[0].numpy(), jstate.values, len(tviews))
     for name in ("obstacles", "navigable", "explored"):
-        _assert_map_close(getattr(tobs, name).numpy(), getattr(jobs, name), len(tviews))
-    valid = tobs.frontiers_valid.numpy()
+        _assert_map_close(getattr(tobs, name)[0].numpy(), getattr(jobs, name), len(tviews))
+    valid = tobs.frontiers_valid[0].numpy()
     np.testing.assert_array_equal(valid, np.asarray(jobs.frontiers_valid))
     assert valid.sum() >= 2
     # XLA's jit divides by pixels_per_meter as a product with its reciprocal.
-    np.testing.assert_allclose(tobs.frontiers_xy.numpy(), np.asarray(jobs.frontiers_xy), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(dec.waypoint_values.numpy(), np.asarray(jwv), atol=1e-4)
-    fxy = tobs.frontiers_xy.numpy()[valid]
-    chosen = _chosen(fxy, dec.choice.frontier.numpy())
+    np.testing.assert_allclose(tobs.frontiers_xy[0].numpy(), np.asarray(jobs.frontiers_xy), atol=1e-6, rtol=0)
+    np.testing.assert_allclose(dec.waypoint_values[0].numpy(), np.asarray(jwv), atol=1e-4)
+    fxy = tobs.frontiers_xy[0].numpy()[valid]
+    chosen = _chosen(fxy, dec.choice.frontier[0].numpy())
     assert chosen == _chosen(fxy, jchoice.frontier)
-    np.testing.assert_allclose(float(dec.choice.value), float(jchoice.value), atol=1e-4)
-    np.testing.assert_allclose([float(dec.rho), float(dec.theta)], jrt, atol=1e-5)
-    assert int(dec.action) == jaction
-    np.testing.assert_array_equal(dec.choice.acyclic.keys.numpy(), np.asarray(jchoice.acyclic.keys))
-    return fxy[chosen], int(dec.action)
+    np.testing.assert_allclose(float(dec.choice.value[0]), float(jchoice.value), atol=1e-4)
+    np.testing.assert_allclose([float(dec.rho[0]), float(dec.theta[0])], jrt, atol=1e-5)
+    assert int(dec.action[0]) == jaction
+    np.testing.assert_array_equal(dec.choice.acyclic.keys[0].numpy(), np.asarray(jchoice.acyclic.keys))
+    return fxy[chosen], int(dec.action[0])
 
 
 def test_spin_slice_with_itm_cosines_matches_jax(views, engines):

@@ -1,7 +1,9 @@
 """vlfm_tpu_torch geometry, grid, windows, cone, median and value map
 against their vlfm_tpu twins, on the same numpy inputs, on the CPU.
 
-Geometry, grid, windows, median and waypoint values are held exactly. The
+The port's maps are batch-first: each case runs as one lane (B = 1)
+against JAX's single map. Geometry, grid, windows, median and waypoint
+values are held exactly. The
 cone's confidence goes through atan2 and cos, whose CPU implementations in
 XLA and PyTorch differ in the last ulp, so map cells are held to 1e-6
 (a few f32 ulps of values in [0, 1]). A cell whose comparison sits on such
@@ -131,14 +133,15 @@ def test_windows_match_jax(center):
     rng = np.random.default_rng(2)
     arr = rng.normal(size=(832, 832, 2)).astype(np.float32)
     c = np.array(center, np.int32)
-    got = W.read_window(_t(arr), _t(c), 64)
+    at = W.window_index(_t(c)[None], 64, 832)
+    got = W.read_window(_t(arr)[None], at)[0]
     want = JW.read_window(_j(arr), _j(c), 64)  # starts clamp into the array
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     block = rng.normal(size=(64, 64, 2)).astype(np.float32)
-    t = _t(arr.copy())
-    out = W.write_window(t, _t(block), _t(c))
+    t = _t(arr.copy())[None]
+    out = W.write_window(t, _t(block)[None], at)
     assert out is t  # in place
-    np.testing.assert_array_equal(t.numpy(), np.asarray(JW.write_window(_j(arr), _j(block), _j(c))))
+    np.testing.assert_array_equal(t[0].numpy(), np.asarray(JW.write_window(_j(arr), _j(block), _j(c))))
 
 
 # --- cone and median ----------------------------------------------------------
@@ -149,7 +152,7 @@ def test_cone_matches_jax(yaw):
     jrow = JC.depth_row_max(_j(depth), MIN_D, MAX_D)
     np.testing.assert_array_equal(row.numpy(), np.asarray(jrow))
     f32 = lambda v: torch.tensor(v, dtype=torch.float32)  # noqa: E731
-    got = C.visible_confidence_window(row, f32(yaw), f32(FOV), f32(MAX_D))
+    got = C.visible_confidence_window(row[None], f32([yaw]), f32(FOV), f32(MAX_D))[0]
     want = JC.visible_confidence_window(jrow, jnp.float32(yaw), jnp.float32(FOV), jnp.float32(MAX_D))
     assert got.shape == (256, 256) and float(got.max()) > 0.9
     assert_maps_equal(got.numpy(), want, 256 * 256)
@@ -193,18 +196,18 @@ def test_update_matches_jax(fusion, use_max, with_explored):
     for vals, seed, x, y, yaw in VIEWS:
         depth = synthetic_depth(seed)
         xyz = np.array([x, y, 0.88], np.float32)
-        tf = G.xyz_yaw_to_tf_matrix(_t(xyz), torch.tensor(yaw, dtype=torch.float32))
+        tf = G.xyz_yaw_to_tf_matrix(_t(xyz), torch.tensor(yaw, dtype=torch.float32))[None]
         jtf = JG.xyz_yaw_to_tf_matrix(_j(xyz), jnp.float32(yaw))
         kw = dict(use_max_confidence=use_max, fusion_type=fusion)
-        out = VM.update(state, SPEC, _t(np.float32(vals)), _t(depth), tf, MIN_D, MAX_D, FOV,
-                        explored=None if explored is None else _t(explored), **kw)
+        out = VM.update(state, SPEC, _t(np.float32(vals))[None], _t(depth)[None], tf, MIN_D, MAX_D, FOV,
+                        explored=None if explored is None else _t(explored)[None], **kw)
         assert out is state  # in place
         jstate = JVM.update(jstate, JSPEC, _j(np.float32(vals)), _j(depth), jtf, MIN_D, MAX_D, FOV,
                             explored=None if explored is None else _j(explored), **kw)
     cells = len(VIEWS) * 256 * 256
     assert float(state.conf.max()) > 0
-    assert_maps_equal(state.conf.numpy(), jstate.conf, cells)
-    assert_maps_equal(state.values.numpy(), jstate.values, cells)
+    assert_maps_equal(state.conf[0].numpy(), jstate.conf, cells)
+    assert_maps_equal(state.values[0].numpy(), jstate.values, cells)
     assert VM.reset(state) is state and not state.conf.any() and not state.values.any()
 
 
@@ -214,17 +217,17 @@ def test_waypoint_values_and_sort_match_jax():
     for vals, seed, x, y, yaw in VIEWS:
         depth = synthetic_depth(seed)
         xyz = np.array([x, y, 0.0], np.float32)
-        VM.update(state, SPEC, _t(np.float32(vals)), _t(depth),
-                  G.xyz_yaw_to_tf_matrix(_t(xyz), torch.tensor(yaw, dtype=torch.float32)),
+        VM.update(state, SPEC, _t(np.float32(vals))[None], _t(depth)[None],
+                  G.xyz_yaw_to_tf_matrix(_t(xyz), torch.tensor(yaw, dtype=torch.float32))[None],
                   MIN_D, MAX_D, FOV)
         jstate = JVM.update(jstate, JSPEC, _j(np.float32(vals)), _j(depth),
                             JG.xyz_yaw_to_tf_matrix(_j(xyz), jnp.float32(yaw)), MIN_D, MAX_D, FOV)
     # Maps are equal (checked above), so feed the JAX map to both sides.
-    state = VM.ValueMapState(_t(jstate.conf).clone(), _t(jstate.values).clone())
+    state = VM.ValueMapState(_t(jstate.conf)[None].clone(), _t(jstate.values)[None].clone())
     wps = np.array([[2.0, 0.0], [1.5, 1.2], [-3.0, -3.0], [3.0, -1.0], [12.9, 12.9], [0.5, 0.0]],
                    np.float32)
     valid = np.array([True, True, True, True, True, False])
-    got = VM.waypoint_values(state, SPEC, _t(wps), _t(valid), radius_px=10)
+    got = VM.waypoint_values(state, SPEC, _t(wps)[None], _t(valid)[None], radius_px=10)[0]
     want = JVM.waypoint_values(jstate, JSPEC, _j(wps), _j(valid), radius_px=10)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     assert (got[:2] > 0).all() and (got[5] == -1).all()

@@ -15,7 +15,9 @@ delegates to ``frontier_exploration``, obstacle_map.py:155-169):
 5. waypoint = the segment member nearest the segment centroid.
 
 When the column count is a multiple of 32 the dilations and the frontier
-mask run bit-packed, as in JAX.
+mask run bit-packed, as in JAX. Every step runs on a batch of lanes, each
+with its own grids; the closure is one batched (B, P, P) product per
+squaring.
 """
 
 from __future__ import annotations
@@ -38,23 +40,23 @@ from vlfm_tpu_torch.ops.sparse import first_nonzero_coords, first_nonzero_indice
 
 
 class Frontiers(NamedTuple):
-    waypoints_px: torch.Tensor  # (F, 2) float32 (row, col)
-    valid: torch.Tensor  # (F,) bool
-    sizes: torch.Tensor  # (F,) int64 segment pixel counts
-    overflow: torch.Tensor  # () bool: more than P frontier cells existed
+    waypoints_px: torch.Tensor  # (B, F, 2) float32 (row, col)
+    valid: torch.Tensor  # (B, F) bool
+    sizes: torch.Tensor  # (B, F) int64 segment pixel counts
+    overflow: torch.Tensor  # (B,) bool: more than P frontier cells existed
 
 
 def _cluster_sparse(coords: torch.Tensor, valid: torch.Tensor, num_closure_steps: int) -> torch.Tensor:
     """Labels (smallest member index) of 8-connected clusters among sparse
-    points. coords: (P, 2) int; valid: (P,)."""
-    p = coords.shape[0]
-    cheb = (coords[:, None, :] - coords[None, :, :]).abs().amax(dim=-1)
-    adj = (cheb <= 1) & valid[:, None] & valid[None, :]
+    points. coords: (B, P, 2) int; valid: (B, P)."""
+    p = coords.shape[1]
+    cheb = (coords[:, :, None, :] - coords[:, None, :, :]).abs().amax(dim=-1)
+    adj = (cheb <= 1) & valid[:, :, None] & valid[:, None, :]
     adj = adj | torch.eye(p, dtype=torch.bool, device=coords.device)
     for _ in range(num_closure_steps):
         af = adj.to(torch.float32)
-        adj = torch.matmul(af, af) > 0.5
-    return first_true(adj, 1)  # the diagonal is set, so a column is found
+        adj = torch.bmm(af, af) > 0.5
+    return first_true(adj, -1)  # the diagonal is set, so a column is found
 
 
 def _first_min(x: torch.Tensor, dim: int) -> torch.Tensor:
@@ -63,8 +65,8 @@ def _first_min(x: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def detect_frontiers(
-    navigable: torch.Tensor,  # (S, S) bool
-    explored: torch.Tensor,  # (S, S) bool
+    navigable: torch.Tensor,  # (B, S, S) bool
+    explored: torch.Tensor,  # (B, S, S) bool
     area_thresh_px: float | torch.Tensor,  # px^2
     *,
     max_cells: int = 512,
@@ -72,7 +74,7 @@ def detect_frontiers(
     coarse_factor: int = 4,
 ) -> Frontiers:
     dev = explored.device
-    cols_total = explored.shape[1]
+    b, cols_total = explored.shape[0], explored.shape[-1]
     packed = cols_total % 32 == 0
     if packed:
         expl_d_p = dilate8_packed(dilate8_packed(pack_cols(explored)))  # 5x5
@@ -87,13 +89,13 @@ def detect_frontiers(
     if packed:
         frontier_p = pack_cols(unexplored) & dilate8_packed(expl_d_p)
         rows, cols, valid = first_set_bits_packed(frontier_p, max_cells)
-        n_frontier = popcount(frontier_p).sum()
+        n_frontier = popcount(frontier_p).reshape(b, -1).sum(dim=1)
     else:
         frontier_mask = unexplored & dilate(dilate(explored, 5), 3)
         rows, cols, valid = first_nonzero_coords(frontier_mask, max_cells)
-        n_frontier = frontier_mask.sum()
+        n_frontier = frontier_mask.reshape(b, -1).sum(dim=1)
     coords = torch.stack([rows, cols], dim=-1)
-    coords = torch.where(valid[:, None], coords, -1)
+    coords = torch.where(valid[..., None], coords, -1)
     overflow = n_frontier > max_cells
 
     # ceil(log2(max_cells)) squarings give the full closure for any diameter
@@ -104,15 +106,16 @@ def detect_frontiers(
     root_idx, f_valid = first_nonzero_indices(roots, max_frontiers)
     root_idx = torch.where(f_valid, root_idx, -1)
 
-    member = labels[None, :] == root_idx[:, None].clamp(min=0)  # (F, P)
-    member = member & valid[None, :] & f_valid[:, None]
-    sizes = member.sum(dim=1)
+    member = labels[:, None, :] == root_idx[:, :, None].clamp(min=0)  # (B, F, P)
+    member = member & valid[:, None, :] & f_valid[:, :, None]
+    sizes = member.sum(dim=-1)
 
     cf = coords.to(torch.float32)
-    centroid = (member[..., None] * cf[None]).sum(dim=1) / torch.clamp(sizes, min=1)[:, None].to(torch.float32)
-    diff = cf[None] - centroid[:, None]
+    centroid = (member[..., None] * cf[:, None]).sum(dim=2) / torch.clamp(sizes, min=1)[..., None].to(torch.float32)
+    diff = cf[:, None] - centroid[:, :, None]
     d2 = (diff * diff).sum(dim=-1)
     d2 = torch.where(member, d2, torch.inf)
-    pick = _first_min(d2, 1)
-    waypoints = torch.where(f_valid[:, None], cf[pick], -1.0)
+    pick = _first_min(d2, -1)  # (B, F)
+    picked = torch.gather(cf, 1, pick[..., None].expand(b, max_frontiers, 2))
+    waypoints = torch.where(f_valid[..., None], picked, -1.0)
     return Frontiers(waypoints_px=waypoints, valid=f_valid, sizes=sizes, overflow=overflow)

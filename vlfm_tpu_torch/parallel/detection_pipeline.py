@@ -16,7 +16,7 @@ and _update_object_map, base_objectnav_policy.py:221-241, 311-335):
   encoded once), or, with ``sam_frame_capacity``, in gated passes over the
   frames that hold a detection (``SAM.segment_boxes_gated``).
 
-The VQA veto (``use_vqa``) is not ported yet (ROADMAP Queue 1 item 8); asking
+The VQA veto (``use_vqa``) is not ported yet (ROADMAP Queue 1 item 6); asking
 for it raises.
 """
 
@@ -56,7 +56,7 @@ class DetectionPipeline:
     def __post_init__(self):
         if self.use_vqa:
             raise NotImplementedError(
-                "the VQA veto is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1 item 8)")
+                "the VQA veto is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1 item 6)")
 
     def _queries(self, target: str) -> Tuple[torch.Tensor, torch.Tensor]:
         if target not in self._query_cache:

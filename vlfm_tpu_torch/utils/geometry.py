@@ -33,11 +33,12 @@ def rho_theta(curr_pos: torch.Tensor, curr_heading: torch.Tensor, curr_goal: tor
     """Polar coordinates of ``curr_goal`` in the agent's local frame.
 
     rho = distance to goal; theta = CCW radians the agent must turn to face it.
+    Positions are (..., 2) and headings (...), one per lane.
     """
     local = curr_goal - curr_pos
     c, s = torch.cos(-curr_heading), torch.sin(-curr_heading)
-    lx = c * local[0] - s * local[1]
-    ly = s * local[0] + c * local[1]
+    lx = c * local[..., 0] - s * local[..., 1]
+    ly = s * local[..., 0] + c * local[..., 1]
     rho = torch.sqrt(lx * lx + ly * ly)
     theta = torch.atan2(ly, lx)
     return rho, theta
@@ -63,16 +64,16 @@ def xyz_yaw_to_tf_matrix(xyz: torch.Tensor, yaw: torch.Tensor) -> torch.Tensor:
 
 
 def extract_yaw(tf: torch.Tensor) -> torch.Tensor:
-    """Yaw of a 4x4 transform (rotation of x-axis about z)."""
-    return torch.atan2(tf[1, 0], tf[0, 0])
+    """Yaw of (..., 4, 4) transforms (rotation of x-axis about z)."""
+    return torch.atan2(tf[..., 1, 0], tf[..., 0, 0])
 
 
 def transform_points(tf: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
-    """Apply a 4x4 rigid transform to (N, 3) points -> (N, 3).
+    """Apply (..., 4, 4) rigid transforms to (..., N, 3) points -> (..., N, 3).
 
     Metric coordinates need full f32: on a GPU keep
     ``torch.backends.cuda.matmul.allow_tf32`` off (PyTorch's default)."""
-    return torch.matmul(points, tf[:3, :3].T) + tf[:3, 3]
+    return torch.matmul(points, tf[..., :3, :3].transpose(-1, -2)) + tf[..., None, :3, 3]
 
 
 def within_fov_cone(
@@ -82,11 +83,12 @@ def within_fov_cone(
     cone_range: float,
     points: torch.Tensor,
 ) -> torch.Tensor:
-    """Boolean mask of (N, >=3) ``points`` inside a horizontal FOV cone."""
-    d = points[:, :3] - cone_origin
-    dists = torch.linalg.vector_norm(d, dim=1)
-    angles = torch.atan2(d[:, 1], d[:, 0])
-    diffs = wrap_heading(angles - cone_angle)
+    """Boolean mask of (..., N, >=3) ``points`` inside a horizontal FOV cone
+    with (..., 3) origin and (...) angle, one cone per lane."""
+    d = points[..., :3] - cone_origin[..., None, :]
+    dists = torch.linalg.vector_norm(d, dim=-1)
+    angles = torch.atan2(d[..., 1], d[..., 0])
+    diffs = wrap_heading(angles - cone_angle[..., None])
     return (dists <= cone_range) & (torch.abs(diffs) <= cone_fov / 2)
 
 
