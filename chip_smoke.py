@@ -22,13 +22,14 @@ Phases (any failure raises, and the script exits non-zero):
      frontiers agree (the maps are batch-first; phases 5-8 run one lane);
   6. main path at full width: BLIP2-ITM (EVA ViT-g/14 + Q-Former, random
      bf16 weights) scores a 12-view spin of the synthetic environment; each
-     view updates the obstacle map (frontiers) and fuses into the value map;
-     the frontiers are scored and the frontier choice and greedy controller
-     pick an action. K1's and K3's launches are counted over this run;
+     view is one policy step (greedy controller, no detections: the
+     obstacle, value and object maps), the last view the first EXPLORE
+     step, whose frontier choice and greedy action are checked. K1's and
+     K3's launches are counted over this run;
   7. value-map check: injected cosines that favour view 7 must make the
      policy pick a frontier inside view 7's field of view;
   8. timings: full-width ITM scoring per 32-image batch, the spin step
-     whole and its obstacle-map part alone;
+     (ITM and 12 policy steps) whole and its obstacle-map part alone;
   9. the MBConv chain kernel (K2) against its plain version at the detection
      path's shapes and at the CPU tests' ragged ones, each with the kernel
      body it took, with CUDA-event timings of both and the replaced design's
@@ -66,11 +67,10 @@ Phases (any failure raises, and the script exits non-zero):
      under torch.profiler with K4's share) and one pipeline call;
  17. the batched spin at full width: 8 lanes (spins of two_room_plan seeds
      0-7, 12 views each), ITM cosines for the 96 frames in calls of 32 (K1,
-     K3), per view the batched obstacle-map update and fusion (the fusion
-     and the window helpers under set_sync_debug_mode("error")), then the
-     batched decision; each lane equals a B=1 run bit for bit; launches,
-     host syncs, wall and device time per update and per fusion at B=1 and
-     B=8;
+     K3), per view one batched policy step (greedy), the window helpers
+     under set_sync_debug_mode("error"); each lane equals a B=1 run bit for
+     bit; launches, host syncs, wall and device time of the obstacle-map
+     update and of the step at B=1 and B=8, the step adding no host sync;
  18. the object map at full width: phase 11's non-COCO call at threshold 0
      gives (8, 8, 480, 640) masks (K1, K2); update_objects on the 8 lanes
      (64 slots x 512 points, keys fold_in(PRNGKey(lane), step), where lane
@@ -78,7 +78,25 @@ Phases (any failure raises, and the script exits non-zero):
      cursors count the accepted detections; timings. Random SAM weights
      give speckle that the mask erosion clears, so that case must accept
      nothing, and the same detections' boxes, as masks, run the case where
-     points are accepted.
+     points are accepted;
+ 19. batched closed-loop episodes at full width: a full-width PointNav
+     (GN ResNet-18 at 224x224, 2x512 LSTM, random f32 weights from seed 0)
+     and 8 lanes of two_room_plan seeds 0-7 at 640x480 for 40 steps: per
+     step ITM on the 8 frames (K1, K3), the oracle target mask as detection
+     0, one batched step (v2, PointNav), one action per lane (a finished
+     lane idles). PointNav's random weights only turn, so after the spin
+     the environments steer by the greedy rule toward step's goal (step's
+     STOPs kept) and the maps are a moving agent's. Every lane leaves
+     INITIALIZE after 12 steps, one reaches EXPLORE with a frontier, one
+     moves, the ITM cosines are finite, and each equals a B=1 replay of its recorded
+     inputs (maps, frontiers, object-map slots, modes bit for bit; goals
+     and points within 1e-5 m; PointNav's logits and h/c within 1e-4;
+     actions but at near ties, which are counted); the step and ITM + step
+     timed at B=8 and B=1 (wall, device time, idle share, launches, host
+     syncs, env-steps/s), the step adding no host sync to its obstacle
+     update's, and PointNav's act alone; then run_episodes_recycled (16
+     open_room_plan episodes on 8 lanes, greedy) against fresh
+     run_episode runs on the card.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -132,10 +150,13 @@ from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
-from vlfm_tpu_torch.policy import acyclic as AC
-from vlfm_tpu_torch.policy.itm import TURN_LEFT, decide, fuse_view, update_objects, update_obstacles
-from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, two_room_plan
+from vlfm_tpu_torch.models.pointnav import PointNavPolicy
+from vlfm_tpu_torch.policy import itm as ITM
+from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
+from vlfm_tpu_torch.runner.episode_driver import read_back, run_episode, run_episodes_recycled, step_inputs
+from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, open_room_plan, two_room_plan
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
+from vlfm_tpu_torch.utils.img import resize_area
 
 DEV = torch.device("cuda", 0)
 TARGET = "chair"
@@ -152,7 +173,8 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # gives the kernel (ViT-g and query branch at 12 views, text branch at one
 # prompt of 32 tokens), and those phase 9 gives it: OWL-ViT vision at 8
 # frames (577 tokens before the head, 576 patches after it), OWL-ViT text at
-# the 80 COCO prompts and at one prompt of 8 tokens.
+# the 80 COCO prompts and at one prompt of 8 tokens; and those phase 19's
+# decision step gives it: ViT-g at its 8 lanes and at one lane.
 LN_CASES = [
     (8224, 1408, torch.bfloat16, 1e-6),
     (1024, 768, torch.bfloat16, 1e-12),
@@ -165,6 +187,8 @@ LN_CASES = [
     (8 * 576, 768, torch.bfloat16, 1e-5),
     (80 * 8, 512, torch.bfloat16, 1e-5),
     (1 * 8, 512, torch.bfloat16, 1e-5),
+    (8 * 257, 1408, torch.bfloat16, 1e-6),
+    (1 * 257, 1408, torch.bfloat16, 1e-6),
 ]
 LN_F32_ATOL = 2e-5  # bf16: ops.norms.bf16_tolerance, one bf16 ulp of plain
 TINY_COS_ATOL = 1e-3
@@ -174,6 +198,7 @@ ATTN_LAUNCHES_IMAGE = 39  # K3 once per ViT-g block; the Q-Former keeps plain at
 ATTN_LAUNCHES_TEXT = 0
 ATTN_SHAPE = (32, 16, 257, 88)  # ViT-g at B=32: batch, heads, tokens, head width
 ATTN_SPIN_SHAPE = (12, 16, 257, 88)  # ViT-g at the spin's 12 views
+ATTN_STEP_SHAPES = ((8, 16, 257, 88), (1, 16, 257, 88))  # ViT-g in the decision step: 8 lanes, one lane
 # (variant, the TPU kernels it stands for, arguments, K stored transposed)
 ATTN_VARIANTS = [
     ("max/probs", "K3a flash_attention_grouped, K3c flash_attention, diag_attn_core grouped",
@@ -272,6 +297,8 @@ K4_PER_DETECT = deformable_attentions(GroundingDinoConfig())  # 6 encoder + 6 de
 BATCH_LANES = 8  # phase 17: episodes in one batch
 ITM_BATCH = 32  # phase 17: frames per ITM call
 OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
+EPISODE_STEPS = 40  # phase 19: the 12-turn spin, then 28 steps
+PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN picks its algorithms per batch)
 
 
 def log(msg: str) -> None:
@@ -416,6 +443,8 @@ def phase_attention() -> dict:
     cases = [("max/probs, qkv views (the main path)", ATTN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2], "qkv"),
              ("max/probs, qkv views (the spin's 12 views)", ATTN_SPIN_SHAPE, torch.bfloat16, ATTN_VARIANTS[0][2],
               "qkv")]
+    cases += [(f"max/probs, qkv views (the decision step at B={shape[0]})", shape, torch.bfloat16,
+               ATTN_VARIANTS[0][2], "qkv") for shape in ATTN_STEP_SHAPES]
     cases += [(name, ATTN_SHAPE, torch.bfloat16, kw, "kt" if kt else "") for name, _, kw, kt in ATTN_VARIANTS]
     for shape, dt in ATTN_RAGGED:
         variants = ATTN_VARIANTS[:1] if dt == torch.bfloat16 else (ATTN_VARIANTS[0], ATTN_VARIANTS[3])
@@ -501,6 +530,33 @@ def spin_obstacles(inputs, spec: GridSpec2D, cfg: VLFMConfig, device) -> OM.Obst
     return state
 
 
+def spin_observations(lane_views, cfg: VLFMConfig) -> list[ITM.Observation]:
+    """Per view, the B lanes' observations on the card, one copy each (the
+    episode driver's packing)."""
+    return [step_inputs([views[v] for views in lane_views], cfg, DEV)[0] for v in range(len(lane_views[0]))]
+
+
+def spin_steps(observations, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig):
+    """The spin through the policy step (greedy controller, no detections,
+    keys ``fold_in(PRNGKey(lane), view)``), its last view the first EXPLORE
+    step: that step decides over the maps of every view, from a fresh
+    choice history. ``cosines`` is (B, views, C). Returns (the last step's
+    info, the state)."""
+    b = observations[0].depth.shape[0]
+    h, w = observations[0].depth.shape[1:]
+    scfg = dataclasses.replace(cfg, num_init_turns=len(observations) - 1)
+    state = ITM.create_state(spec, scfg, batch=b, device=DEV)
+    k = cfg.max_detections_per_frame
+    masks = torch.zeros((b, k, h, w), dtype=torch.bool, device=DEV)
+    valid = torch.zeros((b, k), dtype=torch.bool, device=DEV)
+    lanes = threefry.PRNGKey(torch.arange(b, device=DEV))
+    cosines = cosines.to(DEV)
+    for v, obs in enumerate(observations):
+        _, info, state = ITM.step(state, obs, cosines[:, v], masks, valid, threefry.fold_in(lanes, v),
+                                  pointnav="greedy", spec=spec, cfg=scfg)
+    return info, state
+
+
 def without_host_sync(fn):
     """Run ``fn`` with every host synchronisation an error."""
     torch.cuda.set_sync_debug_mode("error")
@@ -508,33 +564,6 @@ def without_host_sync(fn):
         return fn()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-
-
-def spin_maps(inputs, cosines: torch.Tensor, spec: GridSpec2D, cfg: VLFMConfig):
-    """Per view, the obstacle-map update and the value-map fusion of B
-    lanes, as the policy step runs them (vlfm_tpu/policy/itm.py:124-156);
-    the fusion with no host synchronisation. ``cosines`` is (B, views, C)."""
-    b = inputs[0][0].shape[0]
-    cosines = cosines.to(DEV)
-    obstacle = OM.create(spec, cfg.max_frontiers, batch=b, device=DEV)
-    value = VM.create(spec, cfg.value_channels, batch=b, device=DEV)
-    for steps, (tf, depth) in enumerate(inputs):
-        obstacle = update_obstacles(obstacle, spec, cfg, depth, tf, steps)
-        without_host_sync(lambda: fuse_view(value, spec, cfg, cosines[:, steps], depth, tf, obstacle.explored))
-    return obstacle, value
-
-
-def spin_decision(last_views, obstacle: OM.ObstacleMapState, value: VM.ValueMapState, spec: GridSpec2D):
-    """Score each lane's frontiers on its value map and choose one, from
-    each lane's last view."""
-    b = len(last_views)
-    return decide(
-        value, spec, obstacle,
-        torch.from_numpy(np.array([o["robot_xy"] for o in last_views], np.float32)).to(DEV),
-        torch.tensor([o["heading"] for o in last_views], dtype=torch.float32, device=DEV),
-        torch.zeros(b, 2, device=DEV), torch.full((b,), -math.inf, device=DEV),
-        AC.create(batch=b, device=DEV),
-    )
 
 
 def phase_tiny_obstacle_map() -> None:
@@ -563,7 +592,7 @@ def phase_tiny_obstacle_map() -> None:
 # --- phase 6 -----------------------------------------------------------------
 def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
-    inputs = view_inputs(views, cfg, DEV)
+    observations = spin_observations([views], cfg)
     layer_norm.launches = 0
     attention.launches = 0
     t0 = time.perf_counter()
@@ -573,9 +602,8 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     cosines = engine.score(rgb, TARGET)
     torch.cuda.synchronize()
     image = dict(layer_norm=layer_norm.launches - text["layer_norm"], attention=attention.launches - text["attention"])
-    obstacle, value = spin_maps(inputs, cosines[None], spec, cfg)
-    dec = spin_decision(views[-1:], obstacle, value, spec)
-    action = int(dec.action)
+    info, state = spin_steps(observations, cosines[None], spec, cfg)
+    action = int(info.action)
     wall = time.perf_counter() - t0
     launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
     log(
@@ -593,6 +621,7 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     log(f"[main] cosines {tuple(c.shape)}: {[round(v, 5) for v in c[:, 0].tolist()]}")
     check(c.shape == (len(views), cfg.value_channels), "cosine shape")
     check(bool(torch.isfinite(c).all()), "cosines finite")
+    obstacle, value = state.obstacle, state.value
     check(bool(torch.isfinite(value.values).all() and torch.isfinite(value.conf).all()), "value map finite")
     valid = obstacle.frontiers_valid.cpu()
     fxy = obstacle.frontiers_xy.cpu()[valid]
@@ -603,15 +632,18 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     )
     check(bool(valid.any()), "the obstacle map has no valid frontier")
     log(
-        f"[main] chose frontier {[round(v, 3) for v in dec.choice.frontier[0].tolist()]}, value "
-        f"{float(dec.choice.value):.5f}, rho {float(dec.rho):.3f} theta {float(dec.theta):.3f}, "
-        f"action {action}; wall {wall:.2f} s incl. first calls"
+        f"[main] step {int(state.steps)} (mode {int(info.mode)}) chose frontier "
+        f"{[round(v, 3) for v in info.goal[0].tolist()]}, value {float(info.best_value):.5f}, rho "
+        f"{float(info.rho):.3f} theta {float(info.theta):.3f}, action {action}; wall {wall:.2f} s incl. first calls"
     )
-    check(action in (0, 1, 2, 3), "action is a habitat action")
-    check(bool(dec.choice.any_valid), "the decision found no frontier")
-    check(all(bool(torch.isfinite(t).all()) for t in (dec.choice.frontier, dec.choice.value, dec.rho, dec.theta)),
+    check(int(info.mode) == ITM.MODE_EXPLORE, "the spin's last view is not an EXPLORE step")
+    check(action in (ITM.MOVE_FORWARD, ITM.TURN_LEFT, ITM.TURN_RIGHT), "the greedy controller did not steer")
+    check(int(info.num_frontiers) > 0, "the decision found no frontier")
+    check(all(bool(torch.isfinite(t).all()) for t in (info.goal, info.best_value, info.rho, info.theta)),
           "decision finite")
-    check(bool(torch.isfinite(dec.waypoint_values[valid.to(DEV)]).all()), "frontier values finite")
+    wvals = VM.waypoint_values(value, spec, obstacle.frontiers_xy, obstacle.frontiers_valid,
+                               radius_px=int(0.5 * spec.pixels_per_meter))
+    check(bool(torch.isfinite(wvals[valid.to(DEV)]).all()), "frontier values finite")
     return launches
 
 
@@ -619,14 +651,13 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
 def phase_value_map_check(views, spec, cfg) -> None:
     cos = torch.full((len(views), cfg.value_channels), 0.1)
     cos[HIGH_VIEW] = 0.9
-    obstacle, value = spin_maps(view_inputs(views, cfg, DEV), cos[None], spec, cfg)
-    dec = spin_decision(views[-1:], obstacle, value, spec)
+    info, _ = spin_steps(spin_observations([views], cfg), cos[None], spec, cfg)
     robot = views[-1]["robot_xy"]
-    fx, fy = dec.choice.frontier[0].tolist()
+    fx, fy = info.goal[0].tolist()
     off = math.remainder(math.atan2(fy - robot[1], fx - robot[0]) - views[HIGH_VIEW]["heading"], 2 * math.pi)
     log(
         f"[value-map] injected high cosine at view {HIGH_VIEW}: chose frontier ({fx:.2f}, {fy:.2f}) at "
-        f"{math.degrees(off):.1f} deg from that view's heading, value {float(dec.choice.value):.4f}"
+        f"{math.degrees(off):.1f} deg from that view's heading, value {float(info.best_value):.4f}"
     )
     check(abs(off) <= cfg.camera.hfov / 2, "the chosen frontier is not in the high-value view's field of view")
 
@@ -643,15 +674,15 @@ def itm_batch_ms(views, engine: PerceptionEngine, batch: int = 32) -> float:
 
 
 def spin_step_fns(views, engine: PerceptionEngine, spec, cfg):
-    """The 12-view spin step whole (ITM scoring, both maps per view, the
-    decision) and its obstacle-map part alone, on frames already on the
-    card."""
+    """The 12-view spin step whole (ITM scoring, then a policy step per
+    view, the last one deciding) and its obstacle-map part alone, on frames
+    already on the card."""
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
+    observations = spin_observations([views], cfg)
     inputs = view_inputs(views, cfg, DEV)
 
     def step():
-        obstacle, value = spin_maps(inputs, engine.score(rgb, TARGET)[None], spec, cfg)
-        return spin_decision(views[-1:], obstacle, value, spec)
+        return spin_steps(observations, engine.score(rgb, TARGET)[None], spec, cfg)
 
     return step, lambda: spin_obstacles(inputs, spec, cfg, DEV)
 
@@ -1117,13 +1148,6 @@ def phase_gdino_timing(cfg, adapter, sam, rgb, smi: str) -> None:
 
 
 # --- phase 17 ----------------------------------------------------------------
-def lane_inputs(lane_views, cfg: VLFMConfig) -> list[tuple[torch.Tensor, torch.Tensor]]:
-    """Per view, the (B, 4, 4) poses and (B, H, W) depths of B lanes."""
-    per_lane = [view_inputs(views, cfg, DEV) for views in lane_views]
-    return [(torch.cat([p[v][0] for p in per_lane]), torch.cat([p[v][1] for p in per_lane]))
-            for v in range(len(lane_views[0]))]
-
-
 def launch_profile(fn) -> tuple[int, int, float, float]:
     """(kernels, copies and sets, device busy ms, wall ms) of one call of
     ``fn`` under torch.profiler."""
@@ -1152,6 +1176,27 @@ def host_syncs(fn) -> int:
     return sum("called a synchronizing CUDA operation" in str(w.message) for w in caught)
 
 
+def lane_of(observation: ITM.Observation, lane: int) -> ITM.Observation:
+    return ITM.Observation(*(t[lane:lane + 1] for t in observation))
+
+
+def lanes_equal(state: ITM.PolicyState, lane: int, single: ITM.PolicyState, pointnav_atol: float = 0.0) -> list:
+    """Field by field, whether lane ``lane`` of a batched state equals a
+    B = 1 state: bit for bit, but the object map's points and the goal
+    taken from them to OBJ_POINT_ATOL (a batched matmul's blocking follows
+    B) and PointNav's ``h`` and ``c`` to ``pointnav_atol``."""
+    out = []
+    for name, got, want in zip(state._fields, state, single):
+        parts = zip(got._fields, got, want) if isinstance(got, tuple) else [(name, got, want)]
+        for field, g, w in parts:
+            g = g[:, lane:lane + 1] if name == "pointnav" and field in ("h", "c") else g[lane:lane + 1]
+            atol = OBJ_POINT_ATOL if field in ("points", "last_target", "last_goal") else (
+                pointnav_atol if field in ("h", "c") else 0.0)
+            same = torch.equal(g, w) if atol == 0.0 else bool(((g - w).abs() <= atol).all())
+            out.append((f"{name}.{field}", same))
+    return out
+
+
 def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
     b = BATCH_LANES
     lane_views = [spin_views(SPIN_VIEWS, seed=lane) for lane in range(b)]
@@ -1159,10 +1204,8 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
     layer_norm.launches = attention.launches = 0
     cos = torch.cat([engine.score(rgb[i:i + ITM_BATCH], TARGET) for i in range(0, len(rgb), ITM_BATCH)])
     cos = cos.float().reshape(b, SPIN_VIEWS, -1)
-    inputs = lane_inputs(lane_views, cfg)
-    last = [views[-1] for views in lane_views]
-    obstacle, value = spin_maps(inputs, cos, spec, cfg)
-    dec = spin_decision(last, obstacle, value, spec)
+    observations = spin_observations(lane_views, cfg)
+    info, state = spin_steps(observations, cos, spec, cfg)
     torch.cuda.synchronize()
     launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
     calls = len(rgb) // ITM_BATCH
@@ -1174,45 +1217,45 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
 
     # Each lane against a B = 1 run of the same lane, bit for bit.
     for lane in range(b):
-        one = [(tf[lane:lane + 1], depth[lane:lane + 1]) for tf, depth in inputs]
-        o1, v1 = spin_maps(one, cos[lane:lane + 1], spec, cfg)
-        d1 = spin_decision(last[lane:lane + 1], o1, v1, spec)
-        same = [torch.equal(x[lane], y[0]) for x, y in zip(obstacle, o1)]
-        same += [torch.equal(x[lane], y[0]) for x, y in zip(value, v1)]
-        same += [torch.equal(x[lane], y[0]) for x, y in
-                 ((dec.waypoint_values, d1.waypoint_values), (dec.rho, d1.rho), (dec.theta, d1.theta),
-                  (dec.action, d1.action), (dec.choice.frontier, d1.choice.frontier),
-                  (dec.choice.value, d1.choice.value), (dec.choice.acyclic.keys, d1.choice.acyclic.keys))]
-        check(all(same), f"batched spin: lane {lane} differs from its B=1 run ({same})")
-    n_front = obstacle.frontiers_valid.sum(dim=1).tolist()
-    log(f"[batched] every lane equals its B=1 run bit for bit (grids, frontiers, values, decision); frontiers "
-        f"per lane {n_front}, actions {dec.action.tolist()}")
-    check(min(n_front) > 0 and bool(dec.choice.any_valid.all()), "a lane of the batched spin found no frontier")
+        info1, state1 = spin_steps([lane_of(o, lane) for o in observations], cos[lane:lane + 1], spec, cfg)
+        same = lanes_equal(state, lane, state1)
+        same += [(f"info.{n}", torch.equal(x[lane:lane + 1], y)) for n, x, y in zip(info._fields, info, info1)]
+        check(all(ok for _, ok in same), f"batched spin: lane {lane} differs from its B=1 run "
+              f"({[n for n, ok in same if not ok]})")
+    n_front = state.obstacle.frontiers_valid.sum(dim=1).tolist()
+    log(f"[batched] every lane equals its B=1 run bit for bit (grids, frontiers, values, decision; object-map "
+        f"points to {OBJ_POINT_ATOL} m); frontiers per lane {n_front}, actions {info.action.tolist()}")
+    check(min(n_front) > 0 and bool((info.num_frontiers > 0).all()), "a lane of the batched spin found no frontier")
 
-    # Per view at B = 1 and B = 8: launches, host syncs, wall and device time.
-    v = SPIN_VIEWS - 1
+    # The last view again at B = 1 and B = 8: launches, host syncs, wall and
+    # device time of the obstacle-map update alone and of the whole step.
     rows = {}
     for lanes in (1, b):
-        o, val = spin_maps([(tf[:lanes], d[:lanes]) for tf, d in inputs], cos[:lanes], spec, cfg)
-        tf, depth = inputs[v][0][:lanes], inputs[v][1][:lanes]
-        state = {"obstacle": o}
+        obs_lanes = [ITM.Observation(*(t[:lanes] for t in o)) for o in observations]
+        info_l, st = spin_steps(obs_lanes, cos[:lanes], spec, cfg)
+        st = st._replace(steps=st.steps - 1)
+        obs = obs_lanes[-1]
+        scfg = dataclasses.replace(cfg, num_init_turns=SPIN_VIEWS - 1)
+        k = cfg.max_detections_per_frame
+        masks = torch.zeros((lanes, k, *obs.depth.shape[1:]), dtype=torch.bool, device=DEV)
+        valid = torch.zeros((lanes, k), dtype=torch.bool, device=DEV)
+        keys = threefry.PRNGKey(torch.arange(lanes, device=DEV))
 
         def om():
-            state["obstacle"] = update_obstacles(o, spec, cfg, depth, tf, v)
+            update_obstacles(st.obstacle, spec, cfg, obs.depth, obs.tf_camera_to_episodic, st.steps)
 
-        def fuse():
-            fuse_view(val, spec, cfg, cos[:lanes, v], depth, tf, state["obstacle"].explored)
+        def policy_step():
+            ITM.step(st, obs, cos[:lanes, -1], masks, valid, keys, pointnav="greedy", spec=spec, cfg=scfg)
 
         def windows():
-            rc = spec.to_storage(spec.xy_to_px(tf[:, :2, 3]))
-            for arr, window in ((val.conf, 256), (o.navigable, 224)):
+            rc = spec.to_storage(spec.xy_to_px(obs.robot_xy))
+            for arr, window in ((st.value.conf, 256), (st.obstacle.navigable, 224)):
                 at = window_index(rc, window, arr.shape[1])
                 write_window(arr, read_window(arr, at), at)
 
         without_host_sync(windows)
         row = {}
-        for name, fn in (("obstacle-map update", om), ("fusion", fuse), ("view (update + fusion)",
-                                                                          lambda: (om(), fuse()))):
+        for name, fn in (("obstacle-map update", om), ("policy step (greedy)", policy_step)):
             kernels, copies, busy, wall = launch_profile(fn)
             ms = wall_ms(fn, reps=5, warmup=1)
             row[name] = dict(kernels=kernels, copies=copies, syncs=host_syncs(fn), ms=ms, per_lane=ms / lanes,
@@ -1222,8 +1265,9 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
                 f"{r['syncs']} host syncs, {r['ms']:.2f} ms wall (median of 5), {r['per_lane']:.2f} ms per lane; "
                 f"under the profiler {r['device_ms']:.2f} ms of device time, idle share {r['idle']:.3f}; on {smi}")
         rows[lanes] = row
-        del o, val, state
-    check(rows[b]["fusion"]["syncs"] == 0 and rows[1]["fusion"]["syncs"] == 0, "the fusion synchronised the host")
+        check(row["policy step (greedy)"]["syncs"] == row["obstacle-map update"]["syncs"],
+              f"B={lanes}: the policy step synchronised the host beyond the obstacle map's sweep-loop checks")
+        del st, info_l
     return launches
 
 
@@ -1320,6 +1364,187 @@ def phase_object_map(det_cfg, det, sam, smi: str) -> dict:
     return launches
 
 
+# --- phase 19 ----------------------------------------------------------------
+def near_tie(logits: torch.Tensor) -> bool:
+    """Whether a (4,) logit row's top two lie within PN_ATOL."""
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1]) <= PN_ATOL
+
+
+def step_timings(name, lanes, fn, smi) -> dict:
+    """Wall (median of 5), device time and idle share (torch.profiler),
+    launches and host syncs of one call of ``fn``; env-steps/s."""
+    kernels, copies, busy, wall = launch_profile(fn)
+    ms = wall_ms(fn, reps=5, warmup=1)
+    r = dict(kernels=kernels, copies=copies, ms=ms, device_ms=busy, idle=1 - busy / wall,
+             syncs=host_syncs(fn), steps_per_s=lanes / ms * 1e3)
+    log(f"[episodes-time] B={lanes} {name}: {r['ms']:.2f} ms wall (median of 5), {r['steps_per_s']:.1f} "
+        f"env-steps/s; under the profiler {r['device_ms']:.2f} ms of device time, idle share {r['idle']:.3f}; "
+        f"{r['kernels']} kernel launches + {r['copies']} copies/sets, {r['syncs']} host syncs; on {smi}")
+    return r
+
+
+def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
+    b = BATCH_LANES
+    pointnav = PointNavPolicy.init_random(seed=0, depth_shape=tuple(cfg.depth_image_shape), device=DEV)
+    envs = [FakeObjectNavEnv(two_room_plan(seed=lane), EnvConfig()) for lane in range(b)]
+    obs_list = [e.reset() for e in envs]
+    engine.text_features(TARGET)  # cached before the counts
+    state = ITM.create_state(spec, cfg, batch=b, device=DEV)
+    rng = threefry.PRNGKey(0, device=DEV)
+    record, loop_ms = [], []
+    layer_norm.launches = attention.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(EPISODE_STEPS):
+        t_step = time.perf_counter()
+        obs, _, masks, valid = step_inputs(obs_list, cfg, DEV)
+        rgb = torch.from_numpy(np.stack([o["rgb"] for o in obs_list])).to(DEV)
+        cos = engine.score(rgb, TARGET).float()
+        rng, sub = threefry.split(rng)
+        keys = threefry.split(sub, b)
+        action, info, state = ITM.step(state, obs, cos, masks, valid, keys, pointnav=pointnav, spec=spec, cfg=cfg)
+        # PointNav with random weights only turns in place. So the
+        # environments steer by the greedy rule toward the goal that step
+        # chose (its STOPs and the spin kept), and the maps, frontiers and
+        # modes are those of a moving agent; step still runs PointNav.
+        drive = torch.where((info.mode != ITM.MODE_INITIALIZE) & (action != ITM.STOP),
+                            ITM.greedy_action(info.theta), action)
+        back = read_back(drive, info)
+        record.append(dict(inputs=(obs, cos, masks, valid, keys), info=info, fxy=state.obstacle.frontiers_xy,
+                           logits=pointnav.logits(state.pointnav), h=state.pointnav.h, c=state.pointnav.c, rgb=rgb,
+                           drive=back[:, 0].astype(int)))
+        for i, env in enumerate(envs):
+            if not obs_list[i]["done"]:  # a finished episode idles, as JAX's batched driver
+                obs_list[i] = env.step(int(back[i, 0]))
+        loop_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    modes = torch.stack([r["info"].mode for r in record]).cpu()
+    n_front = torch.stack([r["info"].num_frontiers for r in record]).cpu()
+    actions = torch.stack([r["info"].action for r in record]).cpu()
+    cosines = torch.stack([r["inputs"][1] for r in record]).cpu()
+    log(f"[episodes] {b} lanes of two_room_plan seeds 0-{b - 1} at {EnvConfig().width}x{EnvConfig().height}, "
+        f"{EPISODE_STEPS} steps of ITM (B={b}, one call a step) + the policy step (v2, PointNav ResNet-18 GN + "
+        f"2x512 LSTM at {cfg.depth_image_shape[0]}x{cfg.depth_image_shape[1]}, f32), the environments steered by "
+        f"the greedy rule toward step's goal: {wall:.2f} s incl. first calls; "
+        f"K1 {launches['layer_norm']} (expect {EPISODE_STEPS * LAUNCHES_IMAGE}), K3 {launches['attention']} "
+        f"(expect {EPISODE_STEPS * ATTN_LAUNCHES_IMAGE})")
+    check(cosines.shape == (EPISODE_STEPS, b, cfg.value_channels) and bool(torch.isfinite(cosines).all()),
+          "batched episodes: ITM cosines not finite or of the wrong shape")
+    loop = float(np.median(loop_ms[1:]))
+    log(f"[episodes] the closed loop (ITM, step, one read back, the {b} environments' steps and frames on the "
+        f"host): {loop:.2f} ms per env step (median of steps 2-{EPISODE_STEPS}), {b / loop * 1e3:.1f} env-steps/s; "
+        f"on {smi}")
+    log(f"[episodes] modes per step (rows lanes): {modes.T.tolist()}")
+    log(f"[episodes] PointNav's actions per step (rows lanes): {actions.T.tolist()}")
+    log(f"[episodes] the environments' actions per step (rows lanes): "
+        f"{np.stack([r['drive'] for r in record]).T.tolist()}; done {[o['done'] for o in obs_list]}, "
+        f"success {[e.called_stop and o['distance_to_goal'] <= e.cfg.success_radius for e, o in zip(envs, obs_list)]}, "
+        f"path lengths {[round(e.path_length, 2) for e in envs]} m")
+    check(any(e.path_length > 0 for e in envs), "no lane of the batched episodes moved")
+    check(launches == dict(layer_norm=EPISODE_STEPS * LAUNCHES_IMAGE, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE),
+          "batched episodes: K1 and K3 launch counts")
+    init = cfg.num_init_turns
+    check(bool((modes[:init] == ITM.MODE_INITIALIZE).all() and (modes[init] != ITM.MODE_INITIALIZE).all()),
+          f"a lane did not leave INITIALIZE after exactly {init} steps")
+    check(bool(((modes[init:] == ITM.MODE_EXPLORE) & (n_front[init:] > 0)).any()),
+          "no lane reached EXPLORE with a valid frontier")
+
+    # Each lane against a B = 1 replay of its recorded inputs.
+    near, flipped, worst, singles = 0, 0, 0.0, []
+    for lane in range(b):
+        st = ITM.create_state(spec, cfg, device=DEV)
+        diverged = False
+        for k, r in enumerate(record):
+            obs, cos, masks, valid, keys = r["inputs"]
+            sl = slice(lane, lane + 1)
+            _, i1, st = ITM.step(st, lane_of(obs, lane), cos[sl], masks[sl], valid[sl], keys[sl], pointnav=pointnav,
+                                 spec=spec, cfg=cfg)
+            info = r["info"]
+            for name in ("mode", "num_frontiers", "target_detected", "stop_called", "best_value"):
+                check(torch.equal(getattr(info, name)[sl], getattr(i1, name)), f"lane {lane} step {k}: {name}")
+            check(torch.equal(r["fxy"][sl], st.obstacle.frontiers_xy), f"lane {lane} step {k}: frontiers")
+            check(bool(((info.goal[sl] - i1.goal).abs() <= OBJ_POINT_ATOL).all()), f"lane {lane} step {k}: goal")
+            logits1 = pointnav.logits(st.pointnav)
+            tie = near_tie(logits1[0])
+            near += tie
+            if not diverged and not torch.equal(info.action[sl], i1.action):
+                check(tie, f"lane {lane} step {k}: actions differ off a near tie")
+                flipped += 1
+                diverged = True  # the runs' PointNav states part from here; their maps do not
+            if not diverged:
+                err = max(float((r[n][:, sl] - getattr(st.pointnav, n)).abs().max()) for n in ("h", "c"))
+                err = max(err, float((r["logits"][sl] - logits1).abs().max()))
+                check(err <= PN_ATOL, f"lane {lane} step {k}: PointNav differs by {err:.3e} (tol {PN_ATOL})")
+                worst = max(worst, err)
+        same = [(n, ok) for n, ok in lanes_equal(state, lane, st, pointnav_atol=PN_ATOL)
+                if not (diverged and n.startswith("pointnav."))]
+        check(all(ok for _, ok in same), f"batched episodes: lane {lane} differs from its B=1 replay "
+              f"({[n for n, ok in same if not ok]})")
+        singles.append(st)
+    log(f"[episodes] every lane equals its B=1 replay: grids, values, frontiers, object-map slots, modes bit for "
+        f"bit; object-map points and goals within {OBJ_POINT_ATOL} m; PointNav logits and h/c within {worst:.3e} "
+        f"(tol {PN_ATOL}); near-tie steps {near} of {b * EPISODE_STEPS}, actions flipped at them {flipped}")
+
+    # One batched step at B = 8 and at B = 1 (lane 0), on the last step's
+    # inputs at a step count with no full prune (7 steps of 8): the step
+    # alone and ITM + step; PointNav's act alone.
+    obs, cos, masks, valid, keys = record[-1]["inputs"]
+    rgb = record[-1]["rgb"]
+    rows = {}
+    for lanes, st in ((b, state), (1, singles[0])):
+        st = st._replace(steps=st.steps + 1)
+        sl = slice(0, lanes)
+        o = ITM.Observation(*(t[sl] for t in obs))
+
+        def policy_step():
+            ITM.step(st, o, cos[sl], masks[sl], valid[sl], keys[sl], pointnav=pointnav, spec=spec, cfg=cfg)
+
+        def itm_and_step():
+            c = engine.score(rgb[sl], TARGET).float()
+            ITM.step(st, o, c, masks[sl], valid[sl], keys[sl], pointnav=pointnav, spec=spec, cfg=cfg)
+
+        def om():
+            update_obstacles(st.obstacle, spec, cfg, o.depth, o.tf_camera_to_episodic, st.steps)
+
+        nav_depth = resize_area(o.depth, tuple(cfg.depth_image_shape))
+        goal = torch.stack([record[-1]["info"].rho[sl], record[-1]["info"].theta[sl]], dim=-1)
+        rows[lanes] = dict(
+            step=step_timings("policy step (v2, PointNav)", lanes, policy_step, smi),
+            itm_step=step_timings("ITM + policy step", lanes, itm_and_step, smi),
+            obstacle=step_timings("its obstacle-map update alone", lanes, om, smi),
+            act=step_timings("PointNav act alone", lanes, lambda: pointnav.act(nav_depth, goal, st.pointnav), smi),
+        )
+        check(rows[lanes]["step"]["syncs"] == rows[lanes]["obstacle"]["syncs"],
+              f"B={lanes}: the policy step synchronised the host beyond the obstacle map's sweep-loop checks")
+    log(f"[episodes-time] env-steps/s of the batched step: {rows[b]['step']['steps_per_s']:.1f} at B={b} against "
+        f"{rows[1]['step']['steps_per_s']:.1f} at B=1 (step alone); {rows[b]['itm_step']['steps_per_s']:.1f} against "
+        f"{rows[1]['itm_step']['steps_per_s']:.1f} with ITM; on {smi}")
+
+    # The recycled driver on the card against fresh single episodes.
+    seeds = list(range(2 * b))
+
+    def factory(seed):
+        return FakeObjectNavEnv(open_room_plan(seed=seed), EnvConfig())
+
+    recycled, stats = run_episodes_recycled(factory, seeds, lanes=b, pointnav="greedy", spec=spec, cfg=cfg,
+                                            max_steps=EPISODE_STEPS, device=DEV)
+    check(set(recycled) == set(seeds), "the recycled driver lost an episode")
+    for seed in seeds:
+        fresh, _ = run_episode(factory(seed), "greedy", spec, cfg, seed=seed, max_steps=EPISODE_STEPS, device=DEV)
+        got, want = dataclasses.asdict(recycled[seed]), dataclasses.asdict(fresh)
+        for key in ("spl", "soft_spl", "path_length", "distance_to_goal"):
+            check(abs(got.pop(key) - want.pop(key)) <= 1e-6, f"recycled seed {seed}: {key}")
+        check(got == want, f"recycled seed {seed}: {got} against a fresh run's {want}")
+    res = [recycled[s] for s in seeds]
+    log(f"[episodes] run_episodes_recycled: {len(seeds)} open_room_plan episodes on {b} lanes (greedy, env cosines, "
+        f"at most {EPISODE_STEPS} steps) equal fresh run_episode runs on the card; {stats.env_steps} env steps in "
+        f"{stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s, host rendering included); successes "
+        f"{sum(r.success for r in res)}, steps {[r.steps for r in res]}; on {smi}")
+    return launches
+
+
 def build_main_path():
     """The full-width configuration of phase 6: policy config, map grid,
     the perception engine with random bf16 weights, and the spin's views."""
@@ -1381,8 +1606,10 @@ def main() -> None:
     del gd, adapter
 
     batched_run = phase_batched_spin(engine, spec, cfg, smi)
-    del engine
     objmap_run = phase_object_map(det_cfg, det, sam, smi)
+    del det, sam
+    episodes_run = phase_batched_episodes(engine, spec, cfg, smi)
+    del engine
 
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
     check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
@@ -1392,17 +1619,19 @@ def main() -> None:
     check(gdino_run["mbconv_chain"] > 0, "the GroundingDINO path launched no mbconv_chain kernel")
     check(batched_run["layer_norm"] > 0 and batched_run["attention"] > 0, "the batched spin launched no K1 or K3")
     check(objmap_run["layer_norm"] > 0 and objmap_run["mbconv_chain"] > 0, "the object-map path launched no K1 or K2")
+    check(episodes_run["layer_norm"] > 0 and episodes_run["attention"] > 0, "the decision step launched no K1 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
                           {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
                            "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
-                           "object_map": objmap_run["layer_norm"]}, ln),
+                           "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
-                          {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"]}, k3),
+                          {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
+                           "decision_step": episodes_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

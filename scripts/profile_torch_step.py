@@ -9,12 +9,12 @@ measures, with TF32 off:
      activities) over 3 calls after 3 warm-ups; device time per call by
      ATen op, and the LayerNorm (K1) and attention (K3) kernels' launches
      and device time;
-  2. the 12-view spin step (ITM scoring of the 12 views, per view the
-     obstacle-map update and the value-map fusion, then the decision over
-     the frontiers): median wall time of 5 after a warm-up, whole and by
-     part (ITM, value map, obstacle map, decision); then one profiled step,
-     with the device's busy time and idle share over the step's wall time,
-     and device time by ATen op;
+  2. the 12-view spin step (ITM scoring of the 12 views, then per view one
+     policy step with the greedy controller: the obstacle, value and object
+     maps and the decision): median wall time of 5 after a warm-up, whole
+     and by part (ITM, the 12 obstacle-map updates alone, the 12 policy
+     steps); then one profiled step, with the device's busy time and idle
+     share over the step's wall time, and device time by ATen op;
   3. one detection pipeline call at B=8 (``chip_smoke.py`` phase 11's
      configuration: OWL-ViT base-32 with the COCO route and the retry,
      MobileSAM gated at 2 frames, target "toilet"): the same profiler
@@ -50,7 +50,6 @@ from vlfm_tpu_torch.ops.attention import attention  # noqa: E402
 from vlfm_tpu_torch.ops.conv_fused import mbconv_chain  # noqa: E402
 from vlfm_tpu_torch.ops.deform_gather import deform_gather  # noqa: E402
 from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
-from vlfm_tpu_torch.policy.itm import fuse_view  # noqa: E402
 
 LN_KERNEL = "layer_norm_kernel<"  # csrc/layer_norm.cu's kernel template
 K3_KERNELS = ("attention_whole<", "attention_stream<", "attention_f32<")  # csrc/attention*.cu's three bodies
@@ -177,21 +176,13 @@ def main() -> None:
 
     # 2. The 12-view spin step, whole and by part.
     rgb12 = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(S.DEV)
-    inputs = S.view_inputs(views, cfg, S.DEV)
+    observations = S.spin_observations([views], cfg)
     cos12 = engine.score(rgb12, S.TARGET)
-    obstacle, value = S.spin_maps(inputs, cos12[None], spec, cfg)
-
-    def value_part():  # the spin's final explored area stands for each view's
-        state = S.VM.create(spec, cfg.value_channels, device=S.DEV)
-        for (tf, depth), cos in zip(inputs, cos12):
-            fuse_view(state, spec, cfg, cos[None], depth, tf, obstacle.explored)
-
     step, obstacle_part = S.spin_step_fns(views, engine, spec, cfg)
     parts = {
         "ITM scoring of 12 views": lambda: engine.score(rgb12, S.TARGET),
-        "value map, 12 fusions": value_part,
         "obstacle map, 12 updates": obstacle_part,
-        "decision over the frontiers": lambda: S.spin_decision(views[-1:], obstacle, value, spec),
+        "policy steps, 12 (greedy)": lambda: S.spin_steps(observations, cos12[None], spec, cfg),
     }
     step_ms = S.wall_ms(step, reps=5, warmup=1)
     print(f"[step] 12-view spin step on {smi}: {step_ms:.2f} ms whole (wall, median of 5); by part:")

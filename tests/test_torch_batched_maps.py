@@ -4,10 +4,11 @@ lanes, bit for bit, and every lane against JAX, on the CPU.
 - The gate: three spins of ``two_room_plan(seed=0, 1, 2)`` with different
   start poses and step counts (so the every-8th-step full prune falls on
   different views per lane; lane 2 stands where its window starts are
-  negative and clamp), run as one B = 3 batch through the obstacle map,
-  the value map and the decision, equal three B = 1 runs bit for bit, and
-  every lane keeps the JAX parity of test_torch_obstacle_map.py and
-  test_torch_slice.py at their tolerances.
+  negative and clamp), run as one B = 3 batch through the port's ``step``
+  (at every view the obstacle map, the value map and the decision, the
+  choice history carried), equal three B = 1 runs bit for bit, and every
+  lane keeps the JAX parity of test_torch_obstacle_map.py and
+  test_torch_slice.py at their tolerances, each view's decision too.
 - Windows at per-lane centres (a negative start, a clamped one) against
   ``jax.lax.dynamic_slice``; the sweep loops with one lane converging early
   and another cut at ``max_iters``; the batched ops lane by lane.
@@ -41,8 +42,8 @@ from vlfm_tpu_torch.ops import bitpack as BP
 from vlfm_tpu_torch.ops import flood as FL
 from vlfm_tpu_torch.ops import frontier as FR
 from vlfm_tpu_torch.ops import sparse as SP
+from vlfm_tpu_torch.ops import threefry as T
 from vlfm_tpu_torch.ops import windows as W
-from vlfm_tpu_torch.policy import acyclic as AC
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as TENV
 from vlfm_tpu_torch.utils import geometry as G
@@ -209,33 +210,45 @@ def _pose(o):
 
 
 def run_port(per_lane_views, lanes):
-    """The spin of ``lanes`` as one batch: per view the obstacle-map update
-    and the fusion, then the decision from each lane's last pose."""
+    """The spin of ``lanes`` as one batch through the port's ``step``
+    (greedy controller, no detections, every view an EXPLORE step: per
+    view the obstacle-map update, the fusion and the decision, the choice
+    history carried from view to view)."""
     b = len(lanes)
-    cfg = dataclasses.replace(TCFG, sync_explored_areas=True)
-    obstacle = OM.create(SPEC, TCFG.max_frontiers, batch=b, device="cpu")
-    value = VM.create(SPEC, TCFG.value_channels, batch=b, device="cpu")
+    cfg = dataclasses.replace(TCFG, sync_explored_areas=True, num_init_turns=0)
+    state = ITM.create_state(SPEC, cfg, batch=b, device="cpu")
+    state = state._replace(steps=torch.tensor([LANES[lane][3] for lane in lanes], dtype=torch.int32))
     cos = torch.from_numpy(np.stack([_cosines(lane) for lane in lanes]))
+    k = cfg.max_detections_per_frame
+    masks = torch.zeros((b, k, CFG.camera.height, CFG.camera.width), dtype=torch.bool)
+    valid = torch.zeros((b, k), dtype=torch.bool)
+    infos = []
     for v in range(VIEWS):
         views = [per_lane_views[lane][1][v] for lane in lanes]
-        tf = torch.stack([_pose(o) for o in views])
-        depth = torch.from_numpy(np.stack([o["depth"] for o in views]).astype(np.float32))
-        steps = torch.tensor([LANES[lane][3] + v for lane in lanes])
-        obstacle = ITM.update_obstacles(obstacle, SPEC, cfg, depth, tf, steps)
-        ITM.fuse_view(value, SPEC, cfg, cos[:, v], depth, tf, obstacle.explored)
-    last = [per_lane_views[lane][1][-1] for lane in lanes]
-    robot = torch.from_numpy(np.array([o["robot_xy"] for o in last], np.float32))
-    heading = torch.tensor([o["heading"] for o in last], dtype=torch.float32)
-    dec = ITM.decide(value, SPEC, obstacle, robot, heading, torch.zeros(b, 2), torch.full((b,), -np.inf),
-                     AC.create(batch=b, device="cpu"))
-    return obstacle, value, dec
+        obs = ITM.Observation(
+            depth=torch.from_numpy(np.stack([o["depth"] for o in views]).astype(np.float32)),
+            tf_camera_to_episodic=torch.stack([_pose(o) for o in views]),
+            robot_xy=torch.from_numpy(np.array([o["robot_xy"] for o in views], np.float32)),
+            robot_heading=torch.tensor([o["heading"] for o in views], dtype=torch.float32),
+        )
+        keys = T.fold_in(T.PRNGKey(torch.tensor(lanes), device="cpu"), v)
+        _, info, state = ITM.step(state, obs, cos[:, v], masks, valid, keys, pointnav="greedy", spec=SPEC, cfg=cfg)
+        infos.append(info)
+    wvals = VM.waypoint_values(state.value, SPEC, state.obstacle.frontiers_xy, state.obstacle.frontiers_valid,
+                               radius_px=int(0.5 * SPEC.pixels_per_meter))
+    return state.obstacle, state.value, (infos, wvals, state)
 
 
 def run_jax(views, lane):
+    """The same lane in JAX: per view both map updates and the frontier
+    choice (the choice history carried, as JAX's ``step`` carries it on an
+    EXPLORE step)."""
     cam = CFG.camera
     obstacle = JOM.create(JSPEC, CFG.max_frontiers)
     value = JVM.create(JSPEC, CFG.value_channels)
     cos = _cosines(lane)
+    last_frontier, last_value, acyclic = jnp.zeros(2), jnp.float32(-jnp.inf), JAC.create()
+    choices = []
     for v, o in enumerate(views):
         xyz = jnp.array([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height], jnp.float32)
         tf = JG.xyz_yaw_to_tf_matrix(xyz, jnp.float32(o["heading"]))
@@ -250,12 +263,13 @@ def run_jax(views, lane):
         value = JVM.update(value, JSPEC, jnp.asarray(cos[v]), depth, tf, cam.min_depth, cam.max_depth, cam.hfov,
                            use_max_confidence=CFG.use_max_confidence, fusion_type=JVM.FUSION_DEFAULT,
                            explored=obstacle.explored)
-    robot = jnp.asarray(views[-1]["robot_xy"], jnp.float32)
-    wv = JVM.waypoint_values(value, JSPEC, obstacle.frontiers_xy, obstacle.frontiers_valid,
-                             radius_px=int(0.5 * JSPEC.pixels_per_meter))
-    choice = jax_select(obstacle.frontiers_xy, obstacle.frontiers_valid, wv[:, 0], robot, jnp.zeros(2),
-                        jnp.float32(-jnp.inf), JAC.create())
-    return obstacle, value, wv, choice
+        wv = JVM.waypoint_values(value, JSPEC, obstacle.frontiers_xy, obstacle.frontiers_valid,
+                                 radius_px=int(0.5 * JSPEC.pixels_per_meter))
+        choice = jax_select(obstacle.frontiers_xy, obstacle.frontiers_valid, wv[:, 0],
+                            jnp.asarray(o["robot_xy"], jnp.float32), last_frontier, last_value, acyclic)
+        last_frontier, last_value, acyclic = choice.last_frontier, choice.last_value, choice.acyclic
+        choices.append(choice)
+    return obstacle, value, wv, choices
 
 
 def _lane(tree, lane):
@@ -268,15 +282,18 @@ def batched_and_single(lane_views):
 
 
 def test_gate_three_lanes_equal_three_single_runs_bit_for_bit(batched_and_single):
-    (obstacle, value, dec), singles = batched_and_single
-    for lane, (o1, v1, d1) in enumerate(singles):
+    (obstacle, value, (infos, wvals, state)), singles = batched_and_single
+    for lane, (o1, v1, (infos1, wvals1, state1)) in enumerate(singles):
         for got, want in zip(_lane(obstacle, lane), _lane(o1, 0)):
             assert torch.equal(got, want)
         for got, want in zip(_lane(value, lane), _lane(v1, 0)):
             assert torch.equal(got, want)
-        for got, want in ((dec.waypoint_values, d1.waypoint_values), (dec.rho, d1.rho), (dec.theta, d1.theta),
-                          (dec.action, d1.action), (dec.choice.frontier, d1.choice.frontier),
-                          (dec.choice.value, d1.choice.value), (dec.choice.acyclic.keys, d1.choice.acyclic.keys)):
+        assert torch.equal(wvals[lane], wvals1[0])
+        for info, info1 in zip(infos, infos1):
+            for got, want in zip(info, info1):
+                assert torch.equal(got[lane], want[0])
+        for got, want in ((state.acyclic.keys, state1.acyclic.keys), (state.last_frontier, state1.last_frontier),
+                          (state.last_value, state1.last_value), (state.steps, state1.steps)):
             assert torch.equal(got[lane], want[0])
     # The lanes differ, the prune schedule too, and lane 2's windows clamp.
     assert not torch.equal(obstacle.explored[0], obstacle.explored[1])
@@ -302,8 +319,8 @@ def test_reset_clears_only_the_chosen_lanes(batched_and_single):
 
 @pytest.mark.parametrize("lane", [0, 1, 2])
 def test_gate_every_lane_keeps_its_jax_parity(lane_views, batched_and_single, lane):
-    (obstacle, value, dec), _ = batched_and_single
-    jobs, jval, jwv, jchoice = run_jax(lane_views[lane][0], lane)
+    (obstacle, value, (infos, wvals, state)), _ = batched_and_single
+    jobs, jval, jwv, jchoices = run_jax(lane_views[lane][0], lane)
     for name in ("obstacles", "navigable", "explored"):
         flips = int((getattr(obstacle, name)[lane].numpy() != np.asarray(getattr(jobs, name))).sum())
         assert flips <= EDGE_FLIP_FRACTION * VIEWS * 224 * 224, f"{name}: {flips} cells differ"
@@ -313,9 +330,8 @@ def test_gate_every_lane_keeps_its_jax_parity(lane_views, batched_and_single, la
         bad = np.abs(got.numpy() - np.asarray(want)) > MAP_ATOL
         bad = bad.any(-1) if bad.ndim == 3 else bad
         assert bad.sum() <= EDGE_FLIP_FRACTION * VIEWS * 256 * 256
-    np.testing.assert_allclose(dec.waypoint_values[lane].numpy(), np.asarray(jwv), atol=1e-4)
-    fxy = obstacle.frontiers_xy[lane].numpy()
-    pick = int(np.argmin(np.linalg.norm(fxy - dec.choice.frontier[lane].numpy(), axis=1)))
-    jpick = int(np.argmin(np.linalg.norm(fxy - np.asarray(jchoice.frontier), axis=1)))
-    assert pick == jpick
-    np.testing.assert_allclose(float(dec.choice.value[lane]), float(jchoice.value), atol=1e-4)
+    np.testing.assert_allclose(wvals[lane].numpy(), np.asarray(jwv), atol=1e-4)
+    for info, jchoice in zip(infos, jchoices):  # each view's decision
+        np.testing.assert_allclose(info.goal[lane].numpy(), np.asarray(jchoice.frontier), atol=1e-6, rtol=0)
+        np.testing.assert_allclose(float(info.best_value[lane]), float(jchoice.value), atol=1e-4)
+    np.testing.assert_array_equal(state.acyclic.keys[lane].numpy(), np.asarray(jchoices[-1].acyclic.keys))

@@ -21,13 +21,16 @@ from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
 from vlfm_tpu_torch.models import grounding_dino as GD
 from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads
+from vlfm_tpu_torch.models import pointnav as PN
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.ops import attention as A
 from vlfm_tpu_torch.ops import deform_gather as DG
+from vlfm_tpu_torch.ops import threefry as T
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
+from vlfm_tpu_torch.runner.episode_driver import step_inputs
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
 
 pytestmark = pytest.mark.cuda
@@ -551,3 +554,63 @@ def test_tiny_grounding_dino_card_matches_cpu_and_counts_launches(dev):
     assert torch.equal(torch.isfinite(got_logits.cpu()), finite)
     torch.testing.assert_close(got_logits.cpu()[finite], want_logits[finite], atol=1e-3, rtol=0)
     torch.testing.assert_close(got_boxes.cpu(), want_boxes, atol=1e-4, rtol=0)
+
+
+def test_pointnav_act_card_matches_cpu(dev):
+    """Full-width PointNav (224x224 depth, B = 2) on the card against the
+    same weights on the CPU, with TF32 left on by the caller for cuBLAS and
+    cuDNN and cuDNN's benchmark on: ``act`` turns TF32 off for its
+    convolutions, linear layers and LSTM, and gives every flag back."""
+    cpu = PN.PointNavPolicy.init_random(0, device="cpu")
+    gpu = PN.PointNavPolicy(copy.deepcopy(cpu.module).to(dev))
+    rng = np.random.default_rng(0)
+    depth = torch.from_numpy(rng.uniform(0, 1, (2, 224, 224)).astype(np.float32))
+    goal = torch.from_numpy(np.array([[2.0, 0.3], [4.5, -2.0]], np.float32))
+    states = {d: PN.initial_state(2, device=d) for d in ("cpu", dev)}
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    before = (matmul.allow_tf32, cudnn.allow_tf32, cudnn.benchmark)
+    matmul.allow_tf32 = cudnn.allow_tf32 = cudnn.benchmark = True
+    try:
+        for _ in range(3):
+            _, states["cpu"] = cpu.act(depth, goal, states["cpu"])
+            _, states[dev] = gpu.act(depth.to(dev), goal.to(dev), states[dev])
+            assert (matmul.allow_tf32, cudnn.allow_tf32, cudnn.benchmark) == (True, True, True)
+            for name in ("h", "c"):
+                torch.testing.assert_close(getattr(states[dev], name).cpu(), getattr(states["cpu"], name),
+                                           atol=1e-4, rtol=0)
+            torch.testing.assert_close(gpu.logits(states[dev]).cpu(), cpu.logits(states["cpu"]), atol=1e-4, rtol=0)
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32, cudnn.benchmark = before
+
+
+def test_policy_step_card_matches_cpu(dev):
+    """Two two-room episodes (B = 2) through 14 policy steps with PointNav
+    and oracle detections, on the card and on the CPU from the same frames:
+    the same modes every step, PointNav within 1e-4, and at the end the
+    grids within the cone-edge allowance and the same frontiers."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TCONFIG.VLFMConfig(map_size=256, map_pad=64, camera=TCONFIG.CameraConfig(width=160, height=120))
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    cpu = PN.PointNavPolicy.init_random(0, device="cpu")
+    policies = {"cpu": cpu, dev: PN.PointNavPolicy(copy.deepcopy(cpu.module).to(dev))}
+    envs = [ENV.FakeObjectNavEnv(ENV.two_room_plan(s), ENV.EnvConfig(width=160, height=120)) for s in (0, 1)]
+    frames = [[e.reset() for e in envs]]
+    for a in [ENV.TURN_LEFT] * 12 + [ENV.MOVE_FORWARD]:
+        frames.append([e.step(a) for e in envs])
+    states = {d: ITM.create_state(spec, cfg, batch=2, device=d) for d in policies}
+    for k, obs in enumerate(frames):
+        infos = {}
+        for d, pn in policies.items():
+            keys = T.fold_in(T.PRNGKey(torch.arange(2, device=d)), k)
+            _, infos[d], states[d] = ITM.step(states[d], *step_inputs(obs, cfg, d), keys, pointnav=pn, spec=spec,
+                                              cfg=cfg)
+        assert torch.equal(infos[dev].mode.cpu(), infos["cpu"].mode)
+        for name in ("h", "c"):
+            torch.testing.assert_close(getattr(states[dev].pointnav, name).cpu(),
+                                       getattr(states["cpu"].pointnav, name), atol=1e-4, rtol=0)
+    got, want = states[dev].obstacle, states["cpu"].obstacle
+    for name in ("obstacles", "navigable", "explored"):
+        assert int((getattr(got, name).cpu() != getattr(want, name)).sum()) <= 1e-3 * 2 * 14 * 224 * 224, name
+    assert torch.equal(got.frontiers_valid.cpu(), want.frontiers_valid)
+    torch.testing.assert_close(got.frontiers_xy.cpu(), want.frontiers_xy, atol=0.1, rtol=0)

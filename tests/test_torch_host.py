@@ -2,13 +2,17 @@
 port's independence from jax and from vlfm_tpu.
 
 The port carries its own ``config``, ``models.tokenizer``,
-``models.coco_classes`` and ``runner.fake_env``, so that neither the package
-nor ``chip_smoke.py`` loads anything of the JAX package. Held here: the same
-config fields and defaults, the same token ids, the same COCO class table
-and routing, and bit-identical environment frames along a spin and a walk.
+``models.coco_classes``, ``runner.fake_env``, ``runner.metrics`` and
+``utils.measurements``, so that neither the package nor ``chip_smoke.py``
+loads anything of the JAX package. Held here: the same config fields and
+defaults, the same token ids, the same COCO class table and routing,
+bit-identical environment frames along a spin and a walk for every floor
+plan, the same shortest paths and oracle actions, the same episode results
+and failure causes over a grid of inputs, and the same stairs measure.
 """
 
 import dataclasses
+import itertools
 import os
 import subprocess
 import sys
@@ -21,10 +25,15 @@ from vlfm_tpu import config as JCFG
 from vlfm_tpu.models import coco_classes as JCOCO
 from vlfm_tpu.models import tokenizer as JTOK
 from vlfm_tpu.runner import fake_env as JENV
+from vlfm_tpu.runner import metrics as JM
+from vlfm_tpu.utils import measurements as JMEAS
 from vlfm_tpu_torch import config as CFG
 from vlfm_tpu_torch.models import coco_classes as COCO
 from vlfm_tpu_torch.models import tokenizer as TOK
+from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.runner import fake_env as ENV
+from vlfm_tpu_torch.runner import metrics as M
+from vlfm_tpu_torch.utils import measurements as MEAS
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -83,32 +92,136 @@ def test_is_coco_target_matches_jax(target):
     assert COCO.is_coco_target(target) is (target != "fireplace")
 
 
+PLANS = ["two_room_plan", "furnished_room_plan", "stairs_plan", "hidden_stairs_plan", "open_room_plan"]
+
+
+def _walk(port, ref, actions):
+    pairs = [(port.reset(), ref.reset())]
+    pairs += [(port.step(a), ref.step(a)) for a in actions]
+    assert port.collisions == ref.collisions
+    assert port.path_length == ref.path_length
+    for got, want in pairs:
+        assert set(got) == set(want)
+        for k, v in got.items():
+            np.testing.assert_array_equal(v, want[k], err_msg=k)
+    return pairs
+
+
 @pytest.mark.parametrize("seed", [0, 3])
 def test_fake_env_frames_match_jax(seed):
     """A spin, a walk into the far wall (with collisions) and a stop."""
     cfg = dict(width=96, height=72, max_steps=40)
     port = ENV.FakeObjectNavEnv(ENV.two_room_plan(seed), ENV.EnvConfig(**cfg))
     ref = JENV.FakeObjectNavEnv(JENV.two_room_plan(seed), JENV.EnvConfig(**cfg))
-    assert dataclasses.asdict(port.plan) == {
-        k: v for k, v in dataclasses.asdict(ref.plan).items() if k != "stairs"
-    }
+    assert dataclasses.asdict(port.plan) == dataclasses.asdict(ref.plan)
     actions = [ENV.TURN_LEFT] * 11 + [ENV.TURN_RIGHT] * 2 + [ENV.MOVE_FORWARD] * 24 + [ENV.STOP]
-    pairs = [(port.reset(), ref.reset())]
-    pairs += [(port.step(a), ref.step(a)) for a in actions]
-    assert port.collisions == ref.collisions > 0
-    assert port.path_length == ref.path_length
-    for got, want in pairs:
-        assert set(got) == set(want) - {"agent_z"}
-        for k, v in got.items():
-            np.testing.assert_array_equal(v, want[k], err_msg=k)
+    pairs = _walk(port, ref, actions)
+    assert port.collisions > 0
     assert pairs[-1][0]["done"]
+
+
+@pytest.mark.parametrize("plan", PLANS[1:])
+@pytest.mark.parametrize("seed", [0, 5])
+def test_other_floor_plans_give_jaxs_frames(plan, seed):
+    """Each other floor plan: the same plan, and bit-equal frames along a
+    walk, a half spin and a walk back (the stairs plans raise ``agent_z``)."""
+    cfg = dict(width=96, height=72, max_steps=40)
+    port = ENV.FakeObjectNavEnv(getattr(ENV, plan)(seed), ENV.EnvConfig(**cfg))
+    ref = JENV.FakeObjectNavEnv(getattr(JENV, plan)(seed), JENV.EnvConfig(**cfg))
+    assert dataclasses.asdict(port.plan) == dataclasses.asdict(ref.plan)
+    pairs = _walk(port, ref, [ENV.MOVE_FORWARD] * 10 + [ENV.TURN_LEFT] * 6 + [ENV.MOVE_FORWARD] * 10
+                  + [ENV.TURN_RIGHT] * 3)
+    if "stairs" in plan:
+        assert max(o["agent_z"] for o, _ in pairs) > 0
+
+
+@pytest.mark.parametrize("plan", PLANS)
+@pytest.mark.parametrize("seed", [0, 1])
+def test_shortest_path_and_oracle_action_match_jax(plan, seed):
+    """The BFS geodesic start-to-target length and feasibility, and the
+    oracle's action at every pose of an oracle-driven walk."""
+    cfg = dict(width=32, height=24, max_steps=40)
+    port = ENV.FakeObjectNavEnv(getattr(ENV, plan)(seed), ENV.EnvConfig(**cfg))
+    ref = JENV.FakeObjectNavEnv(getattr(JENV, plan)(seed), JENV.EnvConfig(**cfg))
+    assert port.shortest_path_length() == ref.shortest_path_length()
+    assert port.path_feasible == ref.path_feasible
+    port.reset(), ref.reset()
+    for _ in range(30):
+        action = port.oracle_action()
+        assert action == ref.oracle_action()
+        if action == ENV.STOP:
+            break
+        port.step(action), ref.step(action)
+        assert (port.x, port.y, port.yaw) == (ref.x, ref.y, ref.yaw)
+
+
+def test_traveled_stairs_matches_jax():
+    port, ref = MEAS.TraveledStairs(), JMEAS.TraveledStairs()
+    assert port.traveled_stairs == ref.traveled_stairs is False
+    for z in (0.0, 0.3, 0.95, 0.2, -0.1):
+        port.update(z), ref.update(z)
+        assert port.traveled_stairs == ref.traveled_stairs
+    assert port.traveled_stairs
+    port.reset(), ref.reset()
+    assert port.traveled_stairs == ref.traveled_stairs is False
+
+
+_BOOLS = (False, True)
+
+
+@pytest.mark.parametrize("called_stop,target_detected,target_seen,traveled_stairs,feasible",
+                         list(itertools.product(_BOOLS, repeat=5)))
+def test_compute_result_and_failure_cause_match_jax(called_stop, target_detected, target_seen, traveled_stairs,
+                                                   feasible):
+    """Every combination of the taxonomy's flags, at distances inside and
+    outside the success radius, with and without a false-positive test and
+    an authoritative success."""
+    for dist, fp, override in itertools.product((0.4, 2.5), (None, False, True), (None, True)):
+        kw = dict(called_stop=called_stop, distance_to_goal=dist, success_radius=1.0, shortest_path=6.0,
+                  path_length=7.5, steps=120, max_steps=500, target_detected=target_detected,
+                  target_seen=target_seen, collisions=3, false_positive=fp, traveled_stairs=traveled_stairs,
+                  feasible=feasible, success_override=override)
+        assert dataclasses.asdict(M.compute_result(**kw)) == dataclasses.asdict(JM.compute_result(**kw))
+        flags = dict(target_detected=target_detected, false_positive=bool(fp), stop_called=called_stop,
+                     target_seen=target_seen, traveled_stairs=traveled_stairs, feasible=feasible)
+        assert M.determine_failure_cause(**flags) == JM.determine_failure_cause(**flags)
+
+
+def test_aggregate_and_json_helpers_match_jax():
+    kw = dict(distance_to_goal=2.0, success_radius=1.0, shortest_path=5.0, path_length=6.0, steps=50,
+              max_steps=500, target_detected=True, target_seen=True)
+    results = [M.compute_result(called_stop=s, **kw) for s in (True, False, True)]
+    jresults = [JM.compute_result(called_stop=s, **kw) for s in (True, False, True)]
+    assert M.aggregate(results) == JM.aggregate(jresults)
+    info = {"a": 1, "b": {"c": 2.5, "d": np.zeros(3), "e": "x"}, "f": [1, 2], "g": None, "h": np.ones(2)}
+    assert M.remove_numpy_arrays(info) == JM.remove_numpy_arrays(info)
+    assert M.extract_scalars_from_info(info) == JM.extract_scalars_from_info(info)
+
+
+@pytest.mark.parametrize("target", [(1.0, -2.0), (3.3, 4.1)])
+def test_target_seen_and_false_positive_match_jax(target):
+    """The map-based seen test on the port's grid (a numpy map and a
+    tensor) and the nav-goal test, against JAX's on its grid."""
+    from vlfm_tpu.mapping.grid import GridSpec2D as JGrid
+
+    spec, jspec = GridSpec2D(512, 20, 160), JGrid(512, 20, 160)
+    explored = np.zeros((832, 832), bool)
+    for r0, c0 in ((300, 300), (480, 420)):
+        explored[r0:r0 + 40, c0:c0 + 40] = True
+    assert M.target_bbox_px(spec, target) == JM.target_bbox_px(jspec, target)
+    want = JM.was_target_seen(explored, jspec, target)
+    assert M.was_target_seen(explored, spec, target) == want
+    assert M.was_target_seen(torch.from_numpy(explored), spec, target) == want
+    for goal in ((1.2, -2.1), (0.0, 0.0)):
+        assert M.was_false_positive(goal, target, 0.3) == JM.was_false_positive(goal, target, 0.3)
 
 
 PORT_MODULES = [
     "vlfm_tpu_torch.models.coco_classes", "vlfm_tpu_torch.models.coco_detector",
     "vlfm_tpu_torch.models.owl_vit", "vlfm_tpu_torch.models.params", "vlfm_tpu_torch.models.sam",
     "vlfm_tpu_torch.models.tinyvit", "vlfm_tpu_torch.ops.conv_fused",
-    "vlfm_tpu_torch.parallel.detection_pipeline",
+    "vlfm_tpu_torch.parallel.detection_pipeline", "vlfm_tpu_torch.models.pointnav",
+    "vlfm_tpu_torch.runner.episode_driver", "vlfm_tpu_torch.runner.metrics",
 ]
 
 
@@ -119,7 +232,7 @@ def test_chip_smoke_and_profile_script_import_nothing_of_jax():
         "    importlib.import_module(m)\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
-        "import profile_torch_step, ab_spin_maps\n"
+        "import profile_torch_step\n"
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vlfm_tpu'))\n"
         "assert not bad, bad\n"
     )

@@ -6,7 +6,8 @@ BLIP2-ITM cosines for the default prompt, and per view the obstacle-map
 update with its frontiers and the fusion into the value map (the map half
 of vlfm_tpu/policy/itm.py:step, with its full-prune cadence); then V2
 values of the frontiers, the frontier choice and the greedy rho-theta
-controller (vlfm_tpu/policy/itm.py:253-261). Held: cosines to 1e-4, the
+controller (vlfm_tpu/policy/itm.py:253-261). The port runs it all through
+its ``step``, the last view being its first EXPLORE step. Held: cosines to 1e-4, the
 value map to 1e-5 and the obstacle grids cell for cell (but for cone-edge
 cells on an ulp tie, at most 0.1 % of the cells updated), the frontiers
 (their validity exactly, their position to 1e-6 m), waypoint values to
@@ -40,13 +41,12 @@ from vlfm_tpu.policy.frontier_selection import select_best_frontier as jax_selec
 from vlfm_tpu.runner.fake_env import EnvConfig, FakeObjectNavEnv, two_room_plan
 from vlfm_tpu.utils import geometry as JG
 from vlfm_tpu_torch import config as TCONFIG
-from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models import tokenizer as TTOK
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.ops import threefry as T
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
-from vlfm_tpu_torch.policy import acyclic as AC
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as TENV
 from vlfm_tpu_torch.utils import geometry as G
@@ -127,20 +127,31 @@ def run_jax(views, cosines, sync_explored=False):
 
 
 def run_torch(views, cosines, sync_explored=False):
-    cfg = dataclasses.replace(TCFG, sync_explored_areas=sync_explored)
-    cam = cfg.camera
-    obstacle = OM.create(SPEC, TCFG.max_frontiers, device="cpu")
-    state = VM.create(SPEC, TCFG.value_channels, device="cpu")
+    """The spin through the port's ``step`` (one lane, greedy controller,
+    no detections), with the spin's last view its first EXPLORE step: that
+    step's decision is the frontier choice and greedy action over the maps
+    after all 12 views, from a fresh choice history."""
+    cfg = dataclasses.replace(TCFG, sync_explored_areas=sync_explored, num_init_turns=len(views) - 1)
+    state = ITM.create_state(SPEC, cfg, device="cpu")
+    k = cfg.max_detections_per_frame
+    masks = torch.zeros((1, k, cfg.camera.height, cfg.camera.width), dtype=torch.bool)
+    valid = torch.zeros((1, k), dtype=torch.bool)
     for steps, (o, c) in enumerate(zip(views, cosines)):
-        xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cam.camera_height])
-        tf = G.xyz_yaw_to_tf_matrix(xyz, torch.tensor(o["heading"], dtype=torch.float32))[None]
-        depth = torch.from_numpy(o["depth"].astype(np.float32))[None]
-        obstacle = ITM.update_obstacles(obstacle, SPEC, cfg, depth, tf, steps)
-        ITM.fuse_view(state, SPEC, cfg, c[None], depth, tf, obstacle.explored)
-    robot, heading = _robot(views)
-    dec = ITM.decide(state, SPEC, obstacle, torch.from_numpy(robot)[None], torch.tensor([heading]),
-                     torch.zeros(1, 2), torch.tensor([-np.inf]), AC.create(device="cpu"))
-    return obstacle, state, dec
+        xyz = torch.tensor([o["robot_xy"][0], o["robot_xy"][1], cfg.camera.camera_height])
+        heading = torch.tensor([o["heading"]], dtype=torch.float32)
+        obs = ITM.Observation(
+            depth=torch.from_numpy(o["depth"].astype(np.float32))[None],
+            tf_camera_to_episodic=G.xyz_yaw_to_tf_matrix(xyz, heading[0])[None],
+            robot_xy=torch.from_numpy(np.float32(o["robot_xy"]))[None],
+            robot_heading=heading,
+        )
+        _, info, state = ITM.step(state, obs, c[None], masks, valid, T.PRNGKey(steps, device="cpu")[None],
+                                  pointnav="greedy", spec=SPEC, cfg=cfg)
+    assert int(info.mode[0]) == ITM.MODE_EXPLORE
+    obstacle = state.obstacle
+    wvals = VM.waypoint_values(state.value, SPEC, obstacle.frontiers_xy, obstacle.frontiers_valid,
+                               radius_px=int(0.5 * SPEC.pixels_per_meter))
+    return obstacle, state.value, (info, wvals, state.acyclic)
 
 
 def _chosen(frontiers, frontier):
@@ -160,7 +171,7 @@ def _assert_map_close(got, want, n_views):
 def _compare(views, jcos, tcos, sync_explored=False):
     jviews, tviews = views
     jobs, jstate, jwv, jchoice, jrt, jaction = run_jax(jviews, jcos, sync_explored)
-    tobs, tstate, dec = run_torch(tviews, tcos, sync_explored)
+    tobs, tstate, (info, wvals, acyclic) = run_torch(tviews, tcos, sync_explored)
     _assert_map_close(tstate.conf[0].numpy(), jstate.conf, len(tviews))
     _assert_map_close(tstate.values[0].numpy(), jstate.values, len(tviews))
     for name in ("obstacles", "navigable", "explored"):
@@ -170,15 +181,15 @@ def _compare(views, jcos, tcos, sync_explored=False):
     assert valid.sum() >= 2
     # XLA's jit divides by pixels_per_meter as a product with its reciprocal.
     np.testing.assert_allclose(tobs.frontiers_xy[0].numpy(), np.asarray(jobs.frontiers_xy), atol=1e-6, rtol=0)
-    np.testing.assert_allclose(dec.waypoint_values[0].numpy(), np.asarray(jwv), atol=1e-4)
+    np.testing.assert_allclose(wvals[0].numpy(), np.asarray(jwv), atol=1e-4)
     fxy = tobs.frontiers_xy[0].numpy()[valid]
-    chosen = _chosen(fxy, dec.choice.frontier[0].numpy())
+    chosen = _chosen(fxy, info.goal[0].numpy())
     assert chosen == _chosen(fxy, jchoice.frontier)
-    np.testing.assert_allclose(float(dec.choice.value[0]), float(jchoice.value), atol=1e-4)
-    np.testing.assert_allclose([float(dec.rho[0]), float(dec.theta[0])], jrt, atol=1e-5)
-    assert int(dec.action[0]) == jaction
-    np.testing.assert_array_equal(dec.choice.acyclic.keys[0].numpy(), np.asarray(jchoice.acyclic.keys))
-    return fxy[chosen], int(dec.action[0])
+    np.testing.assert_allclose(float(info.best_value[0]), float(jchoice.value), atol=1e-4)
+    np.testing.assert_allclose([float(info.rho[0]), float(info.theta[0])], jrt, atol=1e-5)
+    assert int(info.action[0]) == jaction
+    np.testing.assert_array_equal(acyclic.keys[0].numpy(), np.asarray(jchoice.acyclic.keys))
+    return fxy[chosen], int(info.action[0])
 
 
 def test_spin_slice_with_itm_cosines_matches_jax(views, engines):

@@ -11,9 +11,14 @@ stores a flax ``scale`` as the ``weight`` of a norm module
 (``layers.Norm``), so that is the leaf kept here; a norm whose scope does
 not read as one (SAM's ``neck_ln1``) keeps its scale f32 and has its bias
 cast, as in JAX.
+
+``exact_f32`` runs a block's f32 convolutions and matmuls on the card
+without TF32, for the models the JAX package keeps in f32 (PointNav).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 from torch import nn
@@ -53,3 +58,28 @@ def cast_for_serving(module: nn.Module, dtype: torch.dtype = torch.bfloat16) -> 
             continue
         param.data = param.data.to(dtype)
     return module
+
+
+@contextlib.contextmanager
+def exact_f32(device: torch.device | str):
+    """Turn TF32 off for cuBLAS and cuDNN inside the block when ``device``
+    is a card, whatever the caller set, and give the caller's flags back
+    after it. cuDNN's other flags (enabled, benchmark, its limit,
+    deterministic) keep the caller's values. On the CPU it does nothing."""
+    if torch.device(device).type != "cuda":
+        yield
+        return
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    # The per-backend getter, where this PyTorch has it, reads the flag
+    # whichever API set it; the legacy getter raises after the newer API.
+    before = getattr(matmul, "fp32_precision", None) or ("tf32" if matmul.allow_tf32 else "ieee")
+    matmul.allow_tf32 = False
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark, benchmark_limit=cudnn.benchmark_limit,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        if before in ("ieee", "tf32"):
+            matmul.allow_tf32 = before == "tf32"
+        else:
+            matmul.fp32_precision = before

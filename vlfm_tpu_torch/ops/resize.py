@@ -52,7 +52,11 @@ def _interp_matrix(n_in: int, n_out: int, kernel: str = "linear") -> np.ndarray:
     return w
 
 
+@lru_cache(maxsize=64)
 def _matrix(n_in: int, n_out: int, kernel: str, device: torch.device) -> torch.Tensor:
+    """The weights on ``device``, copied there once: a copy from pageable
+    host memory waits for the device, so a per-call copy would add a host
+    sync to every resize on the card. Callers only read it."""
     return torch.from_numpy(_interp_matrix(n_in, n_out, kernel)).to(device)
 
 
