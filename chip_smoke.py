@@ -96,7 +96,27 @@ Phases (any failure raises, and the script exits non-zero):
      syncs, env-steps/s), the step adding no host sync to its obstacle
      update's, and PointNav's act alone; then run_episodes_recycled (16
      open_room_plan episodes on 8 lanes, greedy) against fresh
-     run_episode runs on the card.
+     run_episode runs on the card;
+ 20. the full stack at full width: FullStackPerception over phase 6's
+     BLIP2-ITM, phase 11's OWL-ViT (COCO route, the config's thresholds)
+     and MobileSAM gated at 2 frames, and phase 19's PointNav; 8 lanes of
+     two_room_plan seeds 0-7 at 640x480 for 40 steps through
+     make_fused_step with a packed layout (one pinned copy in, one (8, 4)
+     read back per step; past the spin the environments steer by the
+     greedy rule toward the returned goal); the frames with a detection and
+     the SAM passes; K1, K2 and K3 counted per run and per step; the same
+     40 steps' recorded inputs through the unpacked signature give every
+     lane's actions, detected flags and goals bit for bit; one fused
+     dispatch and ``batch`` alone timed at B=8 and B=1 (wall, device time,
+     idle share, launches, host syncs, env-steps/s, bytes per dispatch);
+     then run_episodes_farm (2 spawned sim workers over the shared-memory
+     ring, one dispatch over all 8 lanes) on phase 19's 16 open_room_plan
+     episodes, oracle-scored and equal to phase 19's run_episodes_recycled
+     field for field, and with the full stack's perception, once with f32
+     full-size records and once with the JAX bench's compressed transport
+     (u16 half-size depth, half-size RGB, brought back to the camera grid
+     on the card); all finish (env-steps/s, bytes put, the driver's time
+     by phase).
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -153,9 +173,12 @@ from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
+from vlfm_tpu_torch.runner import packing
 from vlfm_tpu_torch.runner.episode_driver import read_back, run_episode, run_episodes_recycled, step_inputs
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, open_room_plan, two_room_plan
-from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
+from vlfm_tpu_torch.runner.full_stack import FullStackPerception
+from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
+from vlfm_tpu_torch.utils.geometry import rho_theta, xyz_yaw_to_tf_matrix
 from vlfm_tpu_torch.utils.img import resize_area
 
 DEV = torch.device("cuda", 0)
@@ -173,8 +196,10 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 # gives the kernel (ViT-g and query branch at 12 views, text branch at one
 # prompt of 32 tokens), and those phase 9 gives it: OWL-ViT vision at 8
 # frames (577 tokens before the head, 576 patches after it), OWL-ViT text at
-# the 80 COCO prompts and at one prompt of 8 tokens; and those phase 19's
-# decision step gives it: ViT-g at its 8 lanes and at one lane.
+# the 80 COCO prompts and at one prompt of 8 tokens; those phase 19's
+# decision step gives it: ViT-g at its 8 lanes and at one lane; and those
+# phase 20's full stack adds: the Q-Former's queries at 8 lanes and at one,
+# OWL-ViT's vision at one frame.
 LN_CASES = [
     (8224, 1408, torch.bfloat16, 1e-6),
     (1024, 768, torch.bfloat16, 1e-12),
@@ -189,6 +214,9 @@ LN_CASES = [
     (1 * 8, 512, torch.bfloat16, 1e-5),
     (8 * 257, 1408, torch.bfloat16, 1e-6),
     (1 * 257, 1408, torch.bfloat16, 1e-6),
+    (8 * 32, 768, torch.bfloat16, 1e-12),
+    (1 * 577, 768, torch.bfloat16, 1e-5),
+    (1 * 576, 768, torch.bfloat16, 1e-5),
 ]
 LN_F32_ATOL = 2e-5  # bf16: ops.norms.bf16_tolerance, one bf16 ulp of plain
 TINY_COS_ATOL = 1e-3
@@ -198,7 +226,8 @@ ATTN_LAUNCHES_IMAGE = 39  # K3 once per ViT-g block; the Q-Former keeps plain at
 ATTN_LAUNCHES_TEXT = 0
 ATTN_SHAPE = (32, 16, 257, 88)  # ViT-g at B=32: batch, heads, tokens, head width
 ATTN_SPIN_SHAPE = (12, 16, 257, 88)  # ViT-g at the spin's 12 views
-ATTN_STEP_SHAPES = ((8, 16, 257, 88), (1, 16, 257, 88))  # ViT-g in the decision step: 8 lanes, one lane
+# ViT-g in the decision step and the full stack's dispatch: 8 lanes and one lane
+ATTN_STEP_SHAPES = ((8, 16, 257, 88), (1, 16, 257, 88))
 # (variant, the TPU kernels it stands for, arguments, K stored transposed)
 ATTN_VARIANTS = [
     ("max/probs", "K3a flash_attention_grouped, K3c flash_attention, diag_attn_core grouped",
@@ -245,13 +274,15 @@ MAP_FLIPS = 1e-3  # cone-edge cells: atan2/cos differ in the last ulp between de
 FRONTIER_ATOL_M = 0.1  # two cells
 # (shape NHWC, Ch, Cout, residual and final gelu, dtype): the detection
 # path's K2 calls (stage-0 MBConv and the stride-1 merge into stage 3, at
-# B=8 ungated and at one gated pass of 2 frames), then the CPU tests' ragged
-# shapes.
+# B=8 ungated, at one gated pass of 2 frames, and at one frame, the full
+# stack's B=1 dispatch), then the CPU tests' ragged shapes.
 CHAIN_CASES = [
     ((8, 256, 256, 64), 256, 64, True, torch.bfloat16),
     ((2, 256, 256, 64), 256, 64, True, torch.bfloat16),
     ((8, 64, 64, 160), 320, 320, False, torch.bfloat16),
     ((2, 64, 64, 160), 320, 320, False, torch.bfloat16),
+    ((1, 256, 256, 64), 256, 64, True, torch.bfloat16),
+    ((1, 64, 64, 160), 320, 320, False, torch.bfloat16),
     ((2, 7, 9, 8), 16, 8, True, torch.float32),
     ((1, 5, 11, 8), 16, 16, False, torch.float32),
 ]
@@ -299,6 +330,9 @@ ITM_BATCH = 32  # phase 17: frames per ITM call
 OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
 EPISODE_STEPS = 40  # phase 19: the 12-turn spin, then 28 steps
 PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN picks its algorithms per batch)
+FARM_EPISODES = 16  # phases 19-20: open_room_plan episodes on BATCH_LANES lanes
+FARM_WORKERS = 2  # phase 20: sim worker processes
+SAM_CAPACITY = 2  # phase 20: gated SAM's frames per pass
 
 
 def log(msg: str) -> None:
@@ -1523,7 +1557,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
         f"{rows[1]['itm_step']['steps_per_s']:.1f} with ITM; on {smi}")
 
     # The recycled driver on the card against fresh single episodes.
-    seeds = list(range(2 * b))
+    seeds = list(range(FARM_EPISODES))
 
     def factory(seed):
         return FakeObjectNavEnv(open_room_plan(seed=seed), EnvConfig())
@@ -1542,7 +1576,190 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
         f"at most {EPISODE_STEPS} steps) equal fresh run_episode runs on the card; {stats.env_steps} env steps in "
         f"{stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s, host rendering included); successes "
         f"{sum(r.success for r in res)}, steps {[r.steps for r in res]}; on {smi}")
+    return launches, recycled
+
+
+# --- phase 20 ----------------------------------------------------------------
+class CountingPipeline:
+    """The full stack's detection pipeline, recording each call's frames
+    with a detection as a device tensor (no host read until the run ends)."""
+
+    def __init__(self, pipe):
+        self.pipe, self.frames = pipe, []
+
+    def __call__(self, rgb, target, out_hw=None):
+        out = self.pipe(rgb, target, out_hw)
+        self.frames.append(out[1].any(dim=1).sum())
+        return out
+
+    def __getattr__(self, name):
+        return getattr(self.pipe, name)
+
+
+def full_stack_layout(lanes: int, h: int, w: int) -> packing.Layout:
+    """The perception farm's packed layout for its lanes (f32 full-size
+    depth, full-size frames)."""
+    return packing.build_layout([("depth", "float32", (lanes, h, w)), ("rgb", "uint8", (lanes, h, w, 3)),
+                                 ("heading", "float32", (lanes,)), ("xy", "float32", (lanes, 2)),
+                                 ("seeds", "int32", (lanes,)), ("steps", "int32", (lanes,)),
+                                 ("reset", "uint8", (lanes,))])
+
+
+def lane_state(state: ITM.PolicyState, lane: int) -> ITM.PolicyState:
+    """A B = 1 copy of one lane of a batched state."""
+    def take(name, field, t):
+        return (t[:, lane:lane + 1] if name == "pointnav" and field in ("h", "c") else t[lane:lane + 1]).clone()
+
+    return ITM.PolicyState(*(type(v)(*(take(n, f, t) for f, t in zip(v._fields, v))) if isinstance(v, tuple)
+                             else take(n, n, v) for n, v in zip(state._fields, state)))
+
+
+def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, smi: str) -> dict:
+    b = BATCH_LANES
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY)
+    env_cfg = EnvConfig()
+    h, w = env_cfg.height, env_cfg.width
+    pointnav = PointNavPolicy.init_random(seed=0, depth_shape=tuple(cfg.depth_image_shape), device=DEV)
+    perception = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam,
+                                     det_threshold=cfg.non_coco_threshold, device=DEV)
+    counter = perception.pipeline = CountingPipeline(perception.pipeline)
+    layout = full_stack_layout(b, h, w)
+    packed = perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET, layout=layout)
+    unpacked = perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET)
+    check(perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET, layout=layout) is packed,
+          "make_fused_step did not cache its callable")
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = packing.pack_views(buf.numpy(), layout)
+    envs = [FakeObjectNavEnv(two_room_plan(seed=lane), env_cfg) for lane in range(b)]
+    obs_list = [e.reset() for e in envs]
+    perception.engine.text_features(COCO_TARGET)  # cached before the counts
+    perception.pipeline._queries(COCO_TARGET)
+    perception.pipeline.coco_detector._coco_queries()
+    state = ITM.create_state(spec, cfg, batch=b, device=DEV)
+    record, loop_ms = [], []
+    layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    t0 = time.perf_counter()
+    for k in range(EPISODE_STEPS):
+        t_step = time.perf_counter()
+        for j, o in enumerate(obs_list):
+            views["depth"][j], views["rgb"][j] = o["depth"], o["rgb"]
+            views["heading"][j], views["xy"][j] = o["heading"], o["robot_xy"]
+        views["seeds"][:], views["steps"][:], views["reset"][:] = np.arange(b), k, 0
+        inputs = {name: v.copy() for name, v in views.items()}
+        out, state = packed(state, None, buf)  # one pinned copy in
+        out_np = out.cpu().numpy()  # one (8, 4) read back
+        record.append(dict(inputs=inputs, out=out))
+        # Random PointNav only turns: past the spin, the environments steer
+        # by the greedy rule toward step's goal (its STOPs kept), as in
+        # phase 19; the replay below feeds the recorded inputs.
+        actions = out_np[:, 0].astype(np.int64)
+        _, theta = rho_theta(torch.from_numpy(inputs["xy"]), torch.from_numpy(inputs["heading"]),
+                             torch.from_numpy(out_np[:, 2:].copy()))
+        drive = np.where((k >= cfg.num_init_turns) & (actions != ITM.STOP), ITM.greedy_action(theta).numpy(),
+                         actions)
+        for i, env in enumerate(envs):
+            if not obs_list[i]["done"]:  # a finished episode idles
+                obs_list[i] = env.step(int(drive[i]))
+        loop_ms.append((time.perf_counter() - t_step) * 1e3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    frames = [int(f) for f in counter.frames]
+    per_pass = chain_launches(sam.cfg.tinyvit)
+    passes = [-(-f // SAM_CAPACITY) for f in frames]
+    detected = np.stack([r["out"][:, 1].cpu().numpy() for r in record])
+    ln_step = LAUNCHES_IMAGE + 2 * LAUNCHES_DETECT  # ITM's image branch, OWL-ViT twice (COCO prompts, the retry)
+    log(f"[full-stack] {b} lanes of two_room_plan seeds 0-{b - 1} at {w}x{h}, {EPISODE_STEPS} fused dispatches "
+        f"(one pinned copy of {layout.total} bytes in, one ({b}, 4) read back): BLIP2-ITM, OWL-ViT with the COCO "
+        f"route ({COCO_TARGET}, thresholds {cfg.coco_threshold}/{cfg.non_coco_threshold}), MobileSAM gated at "
+        f"{SAM_CAPACITY} frames, step v2 with PointNav: {wall:.2f} s incl. first calls; frames with a detection "
+        f"{sum(frames)} of {b * EPISODE_STEPS}, SAM passes {sum(passes)}; lanes with target_detected per step "
+        f"{detected.sum(axis=1).astype(int).tolist()}; K1 {launches['layer_norm']} (expect "
+        f"{EPISODE_STEPS * ln_step}), K3 {launches['attention']} (expect {EPISODE_STEPS * ATTN_LAUNCHES_IMAGE}), "
+        f"K2 {launches['mbconv_chain']} (expect {per_pass * sum(passes)})")
+    check(launches == dict(layer_norm=EPISODE_STEPS * ln_step, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE,
+                           mbconv_chain=per_pass * sum(passes)), "full stack: K1, K3 and K2 launch counts")
+    check(len(frames) == EPISODE_STEPS and sum(frames) > 0, "full stack: no frame detected")
+    loop = float(np.median(loop_ms[1:]))
+    log(f"[full-stack] the closed loop (fill the pinned buffer, the fused dispatch, its read back, the {b} "
+        f"environments' steps and frames on the host): {loop:.2f} ms per env step (median of steps "
+        f"2-{EPISODE_STEPS}), {b / loop * 1e3:.1f} env-steps/s; path lengths "
+        f"{[round(e.path_length, 2) for e in envs]} m; on {smi}")
+    check(any(e.path_length > 0 for e in envs), "no lane of the full stack moved")
+
+    # The same run through the unpacked signature, at the same B, bit for bit.
+    st = ITM.create_state(spec, cfg, batch=b, device=DEV)
+    names = ("reset", "depth", "heading", "xy", "rgb", "seeds", "steps")
+    for k, r in enumerate(record):
+        action, det_flag, goal, st = unpacked(st, None, *(r["inputs"][n] for n in names))
+        got = torch.cat([action[:, None].float(), det_flag[:, None].float(), goal], dim=1)
+        check(torch.equal(got, r["out"]), f"full stack step {k}: unpacked outputs differ from packed "
+              f"({(got != r['out']).sum().item()} values)")
+    log(f"[full-stack] the unpacked signature (7 copies in, 3 reads out) gives every lane's actions, detected "
+        f"flags and goals bit for bit over the {EPISODE_STEPS} steps")
+
+    # One fused dispatch at B = 8 and at B = 1 (lane 0), at a step count
+    # with no full prune, against ``batch`` alone at the same B.
+    one = full_stack_layout(1, h, w)
+    packed1 = perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET, layout=one)
+    buf1 = torch.empty(one.total, dtype=torch.uint8, pin_memory=True)
+    views1 = packing.pack_views(buf1.numpy(), one)
+    for name, v in views1.items():
+        v[...] = record[-1]["inputs"][name][:1]
+    rgb = torch.from_numpy(record[-1]["inputs"]["rgb"]).to(DEV)
+    rows = {}
+    for lanes, fused, bufl, st in ((b, packed, buf, state), (1, packed1, buf1, lane_state(state, 0))):
+        st = st._replace(steps=st.steps + 1)
+        rows[lanes] = dict(
+            dispatch=step_timings("fused dispatch (one copy in, one read out)", lanes,
+                                  lambda: fused(st, None, bufl)[0].cpu(), smi),
+            batch=step_timings("FullStackPerception.batch alone", lanes,
+                               lambda: perception.batch(rgb[:lanes], COCO_TARGET), smi),
+        )
+        d, p = rows[lanes]["dispatch"], rows[lanes]["batch"]
+        log(f"[full-stack-time] B={lanes}: {layout.total if lanes == b else one.total} bytes per dispatch; "
+            f"perception is {p['ms'] / d['ms']:.3f} of the dispatch's wall time and {p['device_ms'] / d['device_ms']:.3f} "
+            f"of its device time; on {smi}")
+    log(f"[full-stack-time] env-steps/s of the fused dispatch: {rows[b]['dispatch']['steps_per_s']:.1f} at B={b}, "
+        f"{rows[1]['dispatch']['steps_per_s']:.1f} at B=1; on {smi}")
+
+    # The farm: sim worker processes over the shared-memory ring, packed.
+    seeds = list(range(FARM_EPISODES))
+    farm_kw = dict(lanes=b, pointnav="greedy", spec=spec, cfg=cfg, plan_name="open_room_plan", env_cfg=env_cfg,
+                   workers=FARM_WORKERS, max_steps=EPISODE_STEPS)
+    oracle, ostats = run_episodes_farm(seeds, device=DEV, **farm_kw)
+    check(set(oracle) == set(seeds), "the oracle farm lost an episode")
+    for seed in seeds:
+        got, want = dataclasses.asdict(oracle[seed]), dataclasses.asdict(recycled[seed])
+        for key in ("spl", "soft_spl", "path_length", "distance_to_goal"):
+            check(abs(got.pop(key) - want.pop(key)) <= 1e-6, f"oracle farm seed {seed}: {key}")
+        check(got == want, f"oracle farm seed {seed}: {got} against the recycled driver's {want}")
+    log(f"[farm] oracle farm: {FARM_EPISODES} open_room_plan episodes on {b} lanes ({FARM_WORKERS} workers, one "
+        f"dispatch over all lanes, greedy) equal run_episodes_recycled field for field; "
+        f"{farm_summary(ostats)}; on {smi}")
+    # The full stack's farm with f32 full-size records, then with the JAX
+    # bench's transport (bench.py:809, :825): u16 half-size depth and
+    # half-size RGB, dequantised and brought to the camera grid on the card.
+    for label, transport in (("f32 full-size", {}),
+                             ("u16 half-size depth, half-size RGB", dict(depth_u16=True, depth_half=True,
+                                                                         rgb_half=True))):
+        counter.frames.clear()
+        full, fstats = run_episodes_farm(seeds, perception=perception, target=COCO_TARGET, **farm_kw, **transport)
+        check(set(full) == set(seeds) and all(r.steps > 0 for r in full.values()),
+              f"the full-stack farm ({label}) lost an episode")
+        res = [full[s] for s in seeds]
+        log(f"[farm] full-stack farm, {label} records: the same {FARM_EPISODES} episodes with BLIP2-ITM, OWL-ViT "
+            f"and gated SAM per dispatch: all finished, successes {sum(r.success for r in res)}, steps "
+            f"{[r.steps for r in res]}, detected {sum(r.target_detected for r in res)}; frames with a detection "
+            f"{sum(int(f) for f in counter.frames)}; {farm_summary(fstats)}; on {smi}")
     return launches
+
+
+def farm_summary(stats) -> str:
+    return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
+            f"{stats.dispatches} dispatches, "
+            f"{stats.bytes_put} bytes put in {stats.t_put * 1e3:.1f} ms; driver time: drain {stats.t_drain:.2f} s, "
+            f"dispatch {stats.t_dispatch:.2f} s, sync {stats.t_sync:.2f} s, idle {stats.t_idle:.2f} s")
 
 
 def build_main_path():
@@ -1607,9 +1824,9 @@ def main() -> None:
 
     batched_run = phase_batched_spin(engine, spec, cfg, smi)
     objmap_run = phase_object_map(det_cfg, det, sam, smi)
-    del det, sam
-    episodes_run = phase_batched_episodes(engine, spec, cfg, smi)
-    del engine
+    episodes_run, recycled = phase_batched_episodes(engine, spec, cfg, smi)
+    full_stack_run = phase_full_stack(engine, det, sam, spec, recycled, smi)
+    del engine, det, sam
 
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
     check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
@@ -1620,18 +1837,23 @@ def main() -> None:
     check(batched_run["layer_norm"] > 0 and batched_run["attention"] > 0, "the batched spin launched no K1 or K3")
     check(objmap_run["layer_norm"] > 0 and objmap_run["mbconv_chain"] > 0, "the object-map path launched no K1 or K2")
     check(episodes_run["layer_norm"] > 0 and episodes_run["attention"] > 0, "the decision step launched no K1 or K3")
+    check(all(full_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the full-stack step launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
                           {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
                            "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
-                           "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"]}, ln),
+                           "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
+                           "full_stack_step": full_stack_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
-                           "object_map": objmap_run["mbconv_chain"]}, k2),
+                           "object_map": objmap_run["mbconv_chain"],
+                           "full_stack_step": full_stack_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
-                           "decision_step": episodes_run["attention"]}, k3),
+                           "decision_step": episodes_run["attention"],
+                           "full_stack_step": full_stack_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

@@ -30,7 +30,10 @@ from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_ch
 from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
+from vlfm_tpu_torch.runner import packing as PK
+from vlfm_tpu_torch.runner import sim_farm as SF
 from vlfm_tpu_torch.runner.episode_driver import step_inputs
+from vlfm_tpu_torch.runner.full_stack import FullStackPerception
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
 
 pytestmark = pytest.mark.cuda
@@ -614,3 +617,57 @@ def test_policy_step_card_matches_cpu(dev):
         assert int((getattr(got, name).cpu() != getattr(want, name)).sum()) <= 1e-3 * 2 * 14 * 224 * 224, name
     assert torch.equal(got.frontiers_valid.cpu(), want.frontiers_valid)
     torch.testing.assert_close(got.frontiers_xy.cpu(), want.frontiers_xy, atol=0.1, rtol=0)
+
+
+@pytest.mark.parametrize("compressed", [False, True], ids=["f32", "u16-half"])
+def test_packed_fused_step_card_matches_cpu(dev, compressed):
+    """The full stack's packed fused step (tiny f32 BLIP2-ITM, OWL-ViT and
+    MobileSAM, 48x64 frames, 2 lanes) on the card, fed from pinned memory,
+    against the same weights on the CPU: two dispatches, the second
+    restarting lane 1; actions and detections equal, goals within 1e-5 m.
+    With f32 full-size records, and with the JAX bench's transport (u16
+    half-size depth, half-size RGB): dequantised, upsampled and its masks
+    brought to the camera grid on each device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = 48, 64
+    cfg = TCONFIG.VLFMConfig(camera=TCONFIG.CameraConfig(height=h, width=w), max_frontiers=16,
+                             max_frontier_cells=256, object_map_slots=8, object_map_points_per_slot=128,
+                             max_detections_per_frame=4)
+    spec = GridSpec2D(512, 20, 160)
+    itm_cpu = BLIP2ITM.init_random(dataclasses.replace(BLIP2ITMConfig.tiny(), compute_dtype=torch.float32), seed=0,
+                                   device="cpu")
+    cpu = FullStackPerception(cfg, itm=itm_cpu, device="cpu")
+    det, sam = cpu.pipeline.detector, cpu.pipeline.sam
+    gpu = FullStackPerception(
+        cfg, itm=BLIP2ITM(itm_cpu.cfg, copy.deepcopy(itm_cpu.module).to(dev)),
+        detector=type(det)(det.cfg, copy.deepcopy(det.module).to(dev)),
+        sam=SAM(sam.cfg, copy.deepcopy(sam.module).to(dev)), device=dev)
+    rh, rw = (h // 2, w // 2) if compressed else (h, w)
+    layout = PK.build_layout([("depth", "uint16" if compressed else "float32", (2, rh, rw)),
+                              ("rgb", "uint8", (2, rh, rw, 3)),
+                              ("heading", "float32", (2,)), ("xy", "float32", (2, 2)), ("seeds", "int32", (2,)),
+                              ("steps", "int32", (2,)), ("reset", "uint8", (2,))])
+    steps = {d: p.make_fused_step("greedy", spec, cfg, "toilet", layout=layout) for d, p in (("cpu", cpu), (dev, gpu))}
+    states = {d: ITM.create_state(spec, cfg, batch=2, device=d) for d in steps}
+    envs = [ENV.FakeObjectNavEnv(ENV.open_room_plan(seed=s), ENV.EnvConfig(width=w, height=h)) for s in (0, 1, 2)]
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = PK.pack_views(buf.numpy(), layout)
+    dispatches = [([envs[0].reset(), envs[1].reset()], (0, 1), (0, 0), (0, 0))]
+    dispatches.append(([envs[0].step(ENV.TURN_LEFT), envs[2].reset()], (0, 2), (1, 0), (0, 1)))
+    for obs, seeds, steps_, reset in dispatches:
+        for j, o in enumerate(obs):
+            if compressed:
+                views["depth"][j] = np.clip(SF._avg2x2_f32(o["depth"]), 0, 1) * 65535.0 + 0.5
+                views["rgb"][j] = SF._avg2x2_u8(o["rgb"])
+            else:
+                views["depth"][j], views["rgb"][j] = o["depth"], o["rgb"]
+            views["heading"][j], views["xy"][j] = o["heading"], o["robot_xy"]
+        views["seeds"][:], views["steps"][:], views["reset"][:] = seeds, steps_, reset
+        outs = {}
+        for d, step in steps.items():
+            out, states[d] = step(states[d], None, buf)
+            outs[d] = out.cpu()
+        assert torch.equal(outs[dev][:, :2], outs["cpu"][:, :2])
+        torch.testing.assert_close(outs[dev][:, 2:], outs["cpu"][:, 2:], atol=1e-5, rtol=0)
+    assert states[dev].steps.tolist() == [2, 1]

@@ -222,6 +222,8 @@ PORT_MODULES = [
     "vlfm_tpu_torch.models.tinyvit", "vlfm_tpu_torch.ops.conv_fused",
     "vlfm_tpu_torch.parallel.detection_pipeline", "vlfm_tpu_torch.models.pointnav",
     "vlfm_tpu_torch.runner.episode_driver", "vlfm_tpu_torch.runner.metrics",
+    "vlfm_tpu_torch.runner.full_stack", "vlfm_tpu_torch.runner.sim_farm", "vlfm_tpu_torch.runner.packing",
+    "vlfm_tpu_torch.runner.obsring", "vlfm_tpu_torch.parallel.engine",
 ]
 
 
@@ -239,3 +241,51 @@ def test_chip_smoke_and_profile_script_import_nothing_of_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+# Runs in a spawned process, as the farm starts its workers: one episode
+# of one lane through the farm's worker loop, then the modules it loaded.
+_WORKER_PROBE = """
+import sys
+from vlfm_tpu_torch.runner import sim_farm
+from vlfm_tpu_torch.runner.fake_env import EnvConfig
+sim_farm.worker_main(OBS, ACT, [0], [3], "open_room_plan", EnvConfig(width=32, height=24, max_steps=2), 2,
+                     True, True, True, True)
+bad = sorted(n for n in sys.modules if n.split(".")[0] in ("jax", "jaxlib", "flax", "vlfm_tpu", "torch"))
+sys.exit(f"the worker loaded {bad}" if bad else 0)
+"""
+
+
+def test_spawned_farm_worker_imports_neither_jax_nor_torch():
+    """A farm worker, spawned as ``run_episodes_farm`` spawns it, runs an
+    episode (two actions, then its result record) without loading jax,
+    vlfm_tpu or torch: nothing in it can open the card."""
+    import multiprocessing as mp
+
+    from vlfm_tpu_torch.runner import sim_farm as SF
+    from vlfm_tpu_torch.runner.obsring import ObservationRing
+
+    obs_name, act_name = f"vlfm_t{os.getpid()}_probe_obs", f"vlfm_t{os.getpid()}_probe_act"
+    obs = ObservationRing.create(obs_name, SF.obs_slot_bytes(24, 32, True, True, True, True), 16)
+    act = ObservationRing.create(act_name, SF._ACT_REC.size, 16)
+    try:
+        code = _WORKER_PROBE.replace("OBS", repr(obs_name)).replace("ACT", repr(act_name))
+        proc = mp.get_context("spawn").Process(target=exec, args=(code, {}))
+        proc.start()
+        kinds = []
+        for step in range(3):
+            for _ in range(2000):
+                got = obs.poll_batch()
+                if got:
+                    break
+                proc.join(0.01)
+            assert len(got) == 1, f"no record from the worker at step {step}"
+            kinds.append(SF.record_kind(got[0][1]))
+            if step < 2:
+                act.push(SF._ACT_REC.pack(0, 3, step, ENV.TURN_LEFT))
+        proc.join(60)
+        assert proc.exitcode == 0
+        assert kinds == [SF.KIND_OBS, SF.KIND_OBS, SF.KIND_RESULT]
+    finally:
+        obs.close()
+        act.close()

@@ -6,16 +6,26 @@ TPU's Pallas kernels become CUDA kernels in ``csrc/``, built with ``nvcc``
 at first use (``kernels/build.py``). Each kernel's wrapper runs the kernel
 on CUDA tensors and a plain PyTorch version on CPU tensors.
 
-Ported so far: BLIP2-ITM scoring (ViT-g + Q-Former, LayerNorm and
-attention kernels), the obstacle map with its frontiers, the value map,
-frontier scoring and selection, and the greedy controller; detection with
-OWL-ViT and the COCO route, segmented by gated MobileSAM (TinyViT with the
-MBConv chain kernel); GroundingDINO (Swin-T and BERT, with the deformable
-gather kernel) as the pipeline's other open-vocabulary detector. Entry
-points put their tensors on the card unless the caller passes
-``device="cpu"`` (``device.py``). The package imports neither jax nor
-``vlfm_tpu``: the host modules it needs (``config``, ``models.tokenizer``,
-``models.coco_classes``, ``runner.fake_env``) are its own copies.
+Ported so far, in the order of the slices: BLIP2-ITM scoring (ViT-g +
+Q-Former, LayerNorm and attention kernels), the value map, frontier
+scoring and selection and the greedy controller; detection with OWL-ViT
+and the COCO route, segmented by gated MobileSAM (TinyViT with the MBConv
+chain kernel); the obstacle map and its frontiers, and ViT-g attention on
+a CUDA kernel; GroundingDINO (Swin-T and BERT, with the deformable gather
+kernel) as the pipeline's other open-vocabulary detector; the kernels
+redesigned for Hopper; the maps batch-first, jax's threefry and the object
+map; the whole policy step with PointNav, the V1 frontier cache and the
+episode drivers; and the full stack, real perception feeding the batched
+step in one packed dispatch (``runner/full_stack.py``), with the streamed
+farm of sim worker processes over the shared-memory ring
+(``runner/sim_farm.py``, ``runner/obsring.py``, ``runner/packing.py``).
+Entry points put their tensors on the card
+unless the caller passes ``device="cpu"`` (``device.py``). The package
+imports neither jax nor ``vlfm_tpu``: the host modules it needs
+(``config``, ``models.tokenizer``, ``models.coco_classes``,
+``runner.fake_env``, ``runner.metrics``, ``utils.measurements``) are its
+own copies, and the ring's C++ source, ``native/obsring.cpp``, is built by
+the port's own compile step.
 """
 
 __version__ = "0.1.0"

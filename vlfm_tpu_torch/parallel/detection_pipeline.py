@@ -82,10 +82,13 @@ class DetectionPipeline:
         return xyxy, scores, cls, valid & keep
 
     @torch.inference_mode()
-    def __call__(self, rgb: torch.Tensor, target: str):
+    def __call__(self, rgb: torch.Tensor, target: str, out_hw: Optional[Tuple[int, int]] = None):
         """(B, H, W, 3) uint8 -> (masks (B, K, H, W) bool, valid (B, K),
-        (xyxy (B, K, 4) in [0, 1], scores (B, K), cls (B, K)))."""
-        b, h, w = rgb.shape[:3]
+        (xyxy (B, K, 4) in [0, 1], scores (B, K), cls (B, K))). With
+        ``out_hw``, SAM's masks are resampled to that grid instead of the
+        frame's: the camera grid, for frames that crossed at half size."""
+        b = rgb.shape[0]
+        h, w = out_hw or rgb.shape[1:3]
         if is_coco_target(target):
             # The high-precision threshold first; a miss retries open-vocab
             # at the lower threshold. Without a COCO detector the first pass

@@ -6,16 +6,32 @@ the device for all lanes at once; per step the host makes one
 host-to-device copy (the lanes' depth, pose, cosine and oracle target mask,
 packed into one byte buffer) and one device-to-host read (each lane's
 action, ``target_detected`` and goal, packed into one (B, 4) tensor).
-Perception is the environment's oracle: its cosine on every prompt channel
-and its target mask as detection 0.
+
+Which perception each driver takes:
+
+- the environment's oracle (its cosine on every prompt channel and its
+  target mask as detection 0): ``run_episode``, ``run_episodes_batched``,
+  ``run_episodes_recycled`` here, and ``runner/sim_farm.py``'s
+  ``run_episodes_farm`` without ``perception``;
+- the real models (BLIP2-ITM, OWL-ViT with the COCO route, gated
+  MobileSAM): ``runner/full_stack.py``'s ``run_full_stack_episode`` and
+  ``make_fused_step``, and ``run_episodes_farm`` with ``perception``.
+
+Keys:
 
 - ``run_episode``: one episode (B = 1), keys ``fold_in(PRNGKey(seed), step)``.
 - ``run_episodes_batched``: N episodes in lockstep; a finished lane idles
   until all are done; keys ``split(split(rng)[1], N)`` per step.
 - ``run_episodes_recycled``: continuous batching; a finished lane is reset
   in place (a per-lane ``torch.where`` against a fresh episode) and takes
-  the next episode; keys ``fold_in(PRNGKey(episode seed), step)``, so a
-  recycled lane reproduces a fresh ``run_episode``.
+  the next episode; keys ``fold_in(PRNGKey(episode seed), step)``
+  (``step_keys``), so a recycled lane reproduces a fresh ``run_episode``,
+  and so do the full-stack drivers and the farm.
+
+The helpers the drivers share with ``full_stack.py`` and ``sim_farm.py``:
+``observation`` (device pose and depth to an ``Observation``),
+``step_keys``, ``pack_outputs`` / ``read_back`` (the (B, 4) output) and
+``episode_result`` (the reference's taxonomy).
 """
 
 from __future__ import annotations
@@ -49,6 +65,25 @@ class DriverStats:
         return self.env_steps / self.wall_time if self.wall_time else 0.0
 
 
+def observation(depth: torch.Tensor, xy: torch.Tensor, heading: torch.Tensor, cfg: VLFMConfig) -> itm.Observation:
+    """(B, H, W) depth, (B, 2) position and (B,) heading on the device ->
+    the step's ``Observation``, the camera at ``cfg.camera.camera_height``."""
+    xyz = torch.stack([xy[:, 0], xy[:, 1], torch.full_like(heading, cfg.camera.camera_height)])
+    return itm.Observation(
+        depth=depth,
+        tf_camera_to_episodic=xyz_yaw_to_tf_matrix(xyz, heading).permute(2, 0, 1),
+        robot_xy=xy,
+        robot_heading=heading,
+    )
+
+
+def step_keys(seeds: torch.Tensor, steps: torch.Tensor) -> torch.Tensor:
+    """(B, 2) keys ``fold_in(PRNGKey(seed), step)`` from (B,) integer
+    tensors, computed on their device: each episode's stream, whatever lane
+    or batch it runs in."""
+    return threefry.fold_in(threefry.PRNGKey(seeds), steps)
+
+
 def step_inputs(obs_list, cfg: VLFMConfig, device):
     """The lanes' observations on the device from one copy: (Observation,
     (B, C) cosines, (B, K, H, W) masks, (B, K) valid). Each lane's cosine
@@ -70,14 +105,7 @@ def step_inputs(obs_list, cfg: VLFMConfig, device):
     n_float = floats.size * 4
     fl = dev[:n_float].view(torch.float32).reshape(b, h * w + 4)
     fg = dev[n_float:].reshape(b, h * w + 1).to(torch.bool)
-    xy, heading = fl[:, h * w : h * w + 2], fl[:, h * w + 2]
-    xyz = torch.stack([xy[:, 0], xy[:, 1], torch.full_like(heading, cfg.camera.camera_height)])
-    obs = itm.Observation(
-        depth=fl[:, : h * w].reshape(b, h, w),
-        tf_camera_to_episodic=xyz_yaw_to_tf_matrix(xyz, heading).permute(2, 0, 1),
-        robot_xy=xy,
-        robot_heading=heading,
-    )
+    obs = observation(fl[:, : h * w].reshape(b, h, w), fl[:, h * w : h * w + 2], fl[:, h * w + 2], cfg)
     cosines = fl[:, h * w + 3, None].expand(b, cfg.value_channels)
     k = cfg.max_detections_per_frame
     masks = torch.zeros((b, k, h, w), dtype=torch.bool, device=device)
@@ -87,39 +115,56 @@ def step_inputs(obs_list, cfg: VLFMConfig, device):
     return obs, cosines, masks, valid
 
 
+def pack_outputs(action: torch.Tensor, info: itm.StepInfo) -> torch.Tensor:
+    """(B, 4) f32 on the device: each lane's action, target_detected and
+    goal (small integers are exact in f32)."""
+    return torch.cat([action[:, None].to(torch.float32), info.target_detected[:, None].to(torch.float32),
+                      info.goal], dim=1)
+
+
 def read_back(action: torch.Tensor, info: itm.StepInfo) -> np.ndarray:
     """(B, 4) host array of each lane's action, target_detected and goal,
     from one device-to-host read."""
-    packed = torch.cat([action[:, None].to(torch.float32), info.target_detected[:, None].to(torch.float32),
-                        info.goal], dim=1)
-    return packed.cpu().numpy()
+    return pack_outputs(action, info).cpu().numpy()
 
 
-def _result(env, final_obs, shortest, limit, *, detected, seen, stairs, last_goal, explored, spec):
+def episode_result(*, called_stop, distance_to_goal, success_radius, shortest_path, path_length, steps,
+                   max_steps, collisions, feasible, target, target_radius, detected, seen, stairs, last_goal,
+                   explored, spec):
     """The episode's result with the reference's taxonomy inputs
     (episode_stats_logger.py:44-111): map-based 'seen' (the lane's explored
-    area covers the target, read at episode end only) and the
-    nav-goal-in-target-bbox false-positive test."""
-    target = getattr(env.plan, "target", None) if hasattr(env, "plan") else None
+    area, a device tensor of which only the target's window is read, covers
+    the target) and the nav-goal-in-target-bbox false-positive test."""
     seen_map = M.was_target_seen(explored, spec, target) if target is not None else False
     fp = None
     if target is not None and detected and last_goal is not None:
-        fp = M.was_false_positive(last_goal, target, env.plan.target_radius)
+        fp = M.was_false_positive(last_goal, target, target_radius)
     return M.compute_result(
-        called_stop=env.called_stop,
-        distance_to_goal=final_obs["distance_to_goal"],
-        success_radius=env.cfg.success_radius,
-        shortest_path=shortest,
-        path_length=env.path_length,
-        steps=env.steps,
-        max_steps=limit,
+        called_stop=called_stop,
+        distance_to_goal=distance_to_goal,
+        success_radius=success_radius,
+        shortest_path=shortest_path,
+        path_length=path_length,
+        steps=steps,
+        max_steps=max_steps,
         target_detected=detected,
         target_seen=seen or seen_map,
-        collisions=env.collisions,
+        collisions=collisions,
         false_positive=fp,
         traveled_stairs=stairs.traveled_stairs,
-        feasible=getattr(env, "path_feasible", True),
+        feasible=feasible,
     )
+
+
+def env_result(env, final_obs, shortest, limit, **taxonomy):
+    """``episode_result`` of an environment at its episode's end."""
+    target = getattr(env.plan, "target", None) if hasattr(env, "plan") else None
+    return episode_result(
+        called_stop=env.called_stop, distance_to_goal=final_obs["distance_to_goal"],
+        success_radius=env.cfg.success_radius, shortest_path=shortest, path_length=env.path_length,
+        steps=env.steps, max_steps=limit, collisions=env.collisions,
+        feasible=getattr(env, "path_feasible", True), target=target,
+        target_radius=env.plan.target_radius if target is not None else 0.0, **taxonomy)
 
 
 def run_episodes_recycled(
@@ -162,8 +207,7 @@ def run_episodes_recycled(
     t0 = time.time()
     while any(lane_active):
         obs, cos, masks, valid = step_inputs(obs_list, cfg, device)
-        keys = threefry.fold_in(threefry.PRNGKey(torch.tensor(lane_seed, device=device)),
-                                torch.tensor(lane_step, device=device))
+        keys = step_keys(torch.tensor(lane_seed, device=device), torch.tensor(lane_step, device=device))
         action, info, bstate = itm.step(bstate, obs, cos, masks, valid, keys,
                                         pointnav=pointnav, spec=spec, cfg=cfg, version=version)
         back = read_back(action, info)
@@ -182,7 +226,7 @@ def run_episodes_recycled(
             lane_step[i] += 1
             stats.env_steps += 1
             if obs_list[i]["done"] or lane_step[i] >= limit:
-                results[lane_seed[i]] = _result(
+                results[lane_seed[i]] = env_result(
                     lane_env[i], obs_list[i], shortest[i], limit, detected=detected[i], seen=seen[i],
                     stairs=stairs[i], last_goal=last_goal[i], explored=bstate.obstacle.explored[i], spec=spec)
                 done_mask[i] = True
@@ -300,6 +344,6 @@ def run_episode(
         o = env.step(int(back[0, 0]))
         stats.env_steps += 1
     stats.wall_time = time.time() - t0
-    result = _result(env, o, shortest, limit, detected=target_detected, seen=target_seen, stairs=stairs,
-                     last_goal=last_goal, explored=state.obstacle.explored[0], spec=spec)
+    result = env_result(env, o, shortest, limit, detected=target_detected, seen=target_seen, stairs=stairs,
+                        last_goal=last_goal, explored=state.obstacle.explored[0], spec=spec)
     return result, stats

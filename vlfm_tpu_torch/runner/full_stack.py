@@ -1,0 +1,229 @@
+"""The full stack: the real perception models in the episode loop.
+
+Counterpart of ``vlfm_tpu/runner/full_stack.py``. Perception (BLIP2-ITM
+scores, OWL-ViT detection with the COCO route and its open-vocabulary
+retry, gated MobileSAM masks) feeds the batched policy step instead of the
+environment's oracle: the complete system of the reference, end to end.
+With converted checkpoints this is the deployment configuration; with
+random weights it runs every seam and measures the stack's throughput.
+
+- ``FullStackPerception.batch``: one batched call per model family for a
+  (B, H, W, 3) frame batch.
+- ``FullStackPerception.make_fused_step``: the farm's dispatch over its lanes
+  (unpack, lane resets, perception, keys, one batched ``step``) behind one
+  host-to-device copy of a packed buffer and one (B, 4) read back.
+- ``run_full_stack_episode``: one episode (B = 1) with model perception.
+
+The VQA veto (``use_vqa``) and the monocular-depth fallback (ZoeDepth) are
+not ported yet (ROADMAP Queue 1 item 6); asking for either raises. The
+ViT-det SAM encoder behind JAX's ``tiny_sam_config`` is not ported either:
+the port's SAM is MobileSAM.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from vlfm_tpu_torch.config import VLFMConfig
+from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.mapping.grid import GridSpec2D
+from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models.coco_detector import CocoDetector
+from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
+from vlfm_tpu_torch.models.sam import SAM, SamConfig
+from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
+from vlfm_tpu_torch.ops import threefry
+from vlfm_tpu_torch.ops.resize import resize_bilinear_hw
+from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
+from vlfm_tpu_torch.parallel.engine import PerceptionEngine
+from vlfm_tpu_torch.policy import itm
+from vlfm_tpu_torch.runner import packing
+from vlfm_tpu_torch.runner.episode_driver import (
+    DriverStats,
+    env_result,
+    observation,
+    pack_outputs,
+    read_back,
+    step_inputs,
+    step_keys,
+)
+from vlfm_tpu_torch.utils.measurements import TraveledStairs
+
+NOT_PORTED = "is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1 item 6)"
+
+
+class FullStackPerception:
+    """(B, H, W, 3) uint8 frames and a target -> (cosines, detection masks,
+    validity) through the real model architectures."""
+
+    def __init__(
+        self,
+        cfg: VLFMConfig,
+        itm: Optional[BLIP2ITM] = None,
+        detector: Optional[OwlViTDetector] = None,
+        sam: Optional[SAM] = None,
+        monodepth=None,
+        det_threshold: float = 0.0,
+        *,
+        vqa=None,
+        blip2_vqa=None,
+        device: torch.device | str = default_device(),
+    ):
+        if cfg.use_vqa or vqa is not None or blip2_vqa is not None:
+            raise NotImplementedError(f"the VQA veto {NOT_PORTED}")
+        if monodepth is not None:
+            raise NotImplementedError(f"monocular depth (ZoeDepth) {NOT_PORTED}")
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.itm = itm or BLIP2ITM.init_random(BLIP2ITMConfig.tiny(), seed=0, device=device)
+        detector = detector or OwlViTDetector.init_random(OwlViTDetConfig.tiny(), seed=0, device=device)
+        # MobileSAM (TinyViT encoder), the reference's vit_t (vlfm/vlm/sam.py:24-57)
+        sam = sam or SAM.init_random(SamConfig.tiny_mobile_sam(), seed=0, device=device)
+        self.tokenizer = WordPieceTokenizer(toy_vocab(), max_len=8)
+        self.engine = PerceptionEngine(itm=self.itm, tokenizer=self.tokenizer, text_prompt=cfg.text_prompt)
+
+        det_vocab = detector.cfg.text.vocab_size
+
+        def encode_queries(names):
+            ids, mask = self.tokenizer.encode_batch(names)
+            if det_vocab < 1000:  # toy configs: fold the real ids into the tiny vocabulary
+                ids = ids % (det_vocab - 1) + 1
+            return ids, mask
+
+        coco = CocoDetector(detector, encode_queries, conf_threshold=cfg.coco_threshold,
+                            max_detections=cfg.max_detections_per_frame)
+        self.pipeline = DetectionPipeline(
+            detector, sam, encode_queries,
+            coco_detector=coco,
+            coco_threshold=cfg.coco_threshold,
+            non_coco_threshold=det_threshold,
+            max_detections=cfg.max_detections_per_frame,
+            sam_frame_capacity=cfg.sam_frame_capacity,
+        )
+        self._fused_cache: dict = {}
+
+    def _perceive(self, rgb: torch.Tensor, target: str, out_hw: Optional[Tuple[int, int]] = None):
+        """ITM cosines (all prompt channels), masks and validity of a device
+        frame batch, with the models read now (weights loaded after an
+        earlier call are the ones served)."""
+        cos = self.itm.cosine_cached_text(self.itm.preprocess(rgb), self.engine.text_features(target))
+        masks, valid, _ = self.pipeline(rgb, target, out_hw)
+        return cos, masks, valid
+
+    def batch(self, rgb_b, target: str):
+        """(B, H, W, 3) uint8 (host numpy or a tensor) -> (cosines (B, C),
+        masks (B, K, H, W) bool, valid (B, K) bool) on the device, one
+        batched call per model family; C is ``cfg.value_channels``."""
+        rgb = torch.as_tensor(rgb_b).to(self.device)
+        cos, masks, valid = self._perceive(rgb, target)
+        return cos[:, : self.cfg.value_channels], masks, valid
+
+    def __call__(self, rgb: np.ndarray, target: str, depth: Optional[np.ndarray] = None):
+        """One (H, W, 3) frame -> numpy (cosines (C_all,), masks (K, H, W),
+        valid (K,), object depth). The object depth is ``depth`` itself: the
+        all-ones-depth trigger of monocular estimation needs ZoeDepth."""
+        rgb_b = torch.as_tensor(rgb).to(self.device)[None]
+        cos, masks, valid = self._perceive(rgb_b, target)
+        return cos[0].cpu().numpy(), masks[0].cpu().numpy(), valid[0].cpu().numpy(), depth
+
+    def make_fused_step(self, pointnav, spec: GridSpec2D, cfg: VLFMConfig, target: str, version: str = "v2",
+                        layout: Optional[packing.Layout] = None):
+        """The farm's dispatch as one call: unpack, dequantise and
+        upsample depth, reset lanes, ITM cosines from the cached text
+        features, the detection pipeline, camera poses, per-lane keys
+        ``fold_in(PRNGKey(seed), step)`` computed on the device, and one
+        batched ``step``.
+
+        Unpacked, the callable is
+            (gstate, fresh, reset_mask, depth, heading, xy, rgb, seeds, steps)
+            -> (actions, target_detected, goals, gstate')
+        with each input copied to the device on its own. With ``layout`` it is
+            (gstate, fresh, packed_u8) -> (out (B, 4) f32 [action, detected,
+            goal_x, goal_y], gstate')
+        where ``packed_u8`` is the (layout.total,) uint8 buffer of
+        ``packing.pack_views``: it crosses in one copy (asynchronous from
+        pinned host memory; the caller rewrites it only after reading this
+        dispatch's ``out``), and ``out`` comes back in one read. The
+        unpack is a set of typed views, so both forms compute on the same
+        bits. ``fresh`` is JAX's fresh-state argument: ``reset_lanes``
+        starts the reset lanes anew, so it may be None.
+
+        u16 depth is dequantised with ``* (1/65535)``; depth or RGB at half
+        size is brought to the camera grid on the device (depth bilinearly,
+        the masks by resampling SAM's output to the camera grid), so
+        ``step`` always sees (H, W). The callable is cached per (target,
+        version, pointnav, spec, cfg, layout); the models are read at each
+        call."""
+        key = (target, version, id(pointnav), id(spec), id(cfg), layout)
+        if key in self._fused_cache:
+            return self._fused_cache[key][0]
+        h, w = cfg.camera.height, cfg.camera.width
+        device = self.device
+
+        def fused(gstate, reset_mask, depth, heading, xy, rgb, seeds, steps):
+            if depth.dtype == torch.uint16:  # u16 transport
+                depth = depth.to(torch.float32) * (1.0 / 65535.0)
+            if tuple(depth.shape[-2:]) != (h, w):  # half-size transport
+                depth = resize_bilinear_hw(depth, h, w)
+            gstate = itm.reset_lanes(gstate, reset_mask)
+            cos, masks, valid = self._perceive(rgb, target, (h, w))
+            action, info, gstate = itm.step(
+                gstate, observation(depth, xy, heading, cfg), cos[:, : cfg.value_channels], masks, valid,
+                step_keys(seeds, steps), pointnav=pointnav, spec=spec, cfg=cfg, version=version)
+            return action, info, gstate
+
+        if layout is not None:
+            def call(gstate, fresh, packed_u8):
+                f = packing.unpack_device(layout, torch.as_tensor(packed_u8).to(device, non_blocking=True))
+                action, info, gstate = fused(gstate, f["reset"].to(torch.bool), f["depth"], f["heading"], f["xy"],
+                                             f["rgb"], f["seeds"], f["steps"])
+                return pack_outputs(action, info), gstate
+        else:
+            def call(gstate, fresh, reset_mask, depth, heading, xy, rgb, seeds, steps):
+                put = [torch.as_tensor(x).to(device) for x in (reset_mask, depth, heading, xy, rgb, seeds, steps)]
+                action, info, gstate = fused(gstate, put[0].to(torch.bool), *put[1:])
+                return action, info.target_detected, info.goal, gstate
+
+        # the entry keeps (pointnav, spec, cfg) alive, so their ids stay unique
+        self._fused_cache[key] = (call, (pointnav, spec, cfg))
+        return call
+
+
+def run_full_stack_episode(env, spec: GridSpec2D, cfg: VLFMConfig, pointnav="greedy",
+                           perception: Optional[FullStackPerception] = None, seed: int = 0,
+                           target: str = "toilet", device: torch.device | str = default_device()):
+    """``run_episode`` with model perception instead of the environment's
+    oracle: per env step one perception call and one ``step`` (B = 1), keys
+    ``fold_in(PRNGKey(seed), step)``, so results do not depend on
+    scheduling and equal the farm's. Returns (EpisodeResult, DriverStats)."""
+    perception = perception or FullStackPerception(cfg, device=device)
+    o = env.reset()
+    state = itm.create_state(spec, cfg, device=device)
+    stats = DriverStats()
+    shortest = env.shortest_path_length()
+    target_seen = target_detected = False
+    stairs = TraveledStairs()
+    last_goal = None
+    key = threefry.PRNGKey(seed, device=device)
+    t0 = time.time()
+    while not o["done"]:
+        cos, masks, valid = perception.batch(o["rgb"][None], target)
+        obs = step_inputs([o], cfg, device)[0]  # depth and pose in one copy
+        stairs.update(o.get("agent_z", 0.0))
+        keys = threefry.fold_in(key, stats.env_steps)[None]  # step_keys' bits, with no copy
+        action, info, state = itm.step(state, obs, cos.to(device), masks.to(device), valid.to(device), keys,
+                                       pointnav=pointnav, spec=spec, cfg=cfg)
+        back = read_back(action, info)
+        target_seen = target_seen or o["target_visible"]
+        target_detected = target_detected or bool(back[0, 1])
+        last_goal = back[0, 2:]
+        o = env.step(int(back[0, 0]))
+        stats.env_steps += 1
+    stats.wall_time = time.time() - t0
+    result = env_result(env, o, shortest, env.cfg.max_steps, detected=target_detected, seen=target_seen,
+                        stairs=stairs, last_goal=last_goal, explored=state.obstacle.explored[0], spec=spec)
+    return result, stats
