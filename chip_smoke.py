@@ -116,7 +116,27 @@ Phases (any failure raises, and the script exits non-zero):
      full-size records and once with the JAX bench's compressed transport
      (u16 half-size depth, half-size RGB, brought back to the camera grid
      on the card); all finish (env-steps/s, bytes put, the driver's time
-     by phase).
+     by phase);
+ 21. the VQA veto: (a) a tiny BLIP2VQA and its veto, card against CPU (the
+     bucket tables equal, the prefix and first-token logits within 1e-3,
+     tokens and vetoes equal off near ties); (b) BLIP-2 flan-T5-XL at full
+     width (EVA ViT-g, the Q-Former, flan-t5-xl; random bf16 weights under
+     cast_for_serving) vetoing 8 box-mask slots on each of the 8 spin
+     frames at capacity 8 and 4 answer tokens, with 8 valid slots (1 pass)
+     and 32 (4 passes): K1 and K3 launches per pass (110 and 39), the gated
+     result against the dense one (first-token logits within
+     VQA_LOGIT_ATOL, vetoes equal off near ties, which are counted), and
+     each density timed (wall, device, idle, launches, host syncs); (c) the
+     full stack with cfg.use_vqa (veto capacity 8) on 8 lanes for 8 packed
+     fused dispatches (K1, K2, K3 against the SAM and veto passes), held bit
+     for bit to the unpacked signature; one dispatch with the veto timed
+     beside one without it; run_episodes_farm with the veto on 8
+     open_room_plan episodes;
+ 22. ZoeDepth: (a) tiny NYU and NK, card against CPU; (b) ZoeD_NK at full
+     width (BEiT-L/16 at 384 px) on the 8 spin frames at 640x480: each lane
+     equals its B=1 run within ZOE_LANE_ATOL, depth in [0, 1], timed at
+     B=1 and B=8; (c) FullStackPerception with all-ones depth infers depth,
+     and with the sensor's depth returns the same object.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -145,6 +165,9 @@ from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
+from vlfm_tpu_torch.models.t5_vqa import bucket_table
+from vlfm_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
@@ -157,7 +180,7 @@ from vlfm_tpu_torch.models.grounding_dino import (
     deformable_attentions,
 )
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
-from vlfm_tpu_torch.models.precision import cast_for_serving
+from vlfm_tpu_torch.models.precision import cast_for_serving, exact_f32
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
@@ -168,7 +191,7 @@ from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
-from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
+from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline, VQAVeto
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy
 from vlfm_tpu_torch.policy import itm as ITM
@@ -333,6 +356,21 @@ PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN pi
 FARM_EPISODES = 16  # phases 19-20: open_room_plan episodes on BATCH_LANES lanes
 FARM_WORKERS = 2  # phase 20: sim worker processes
 SAM_CAPACITY = 2  # phase 20: gated SAM's frames per pass
+VQA_CAPACITY = 8  # phases 21-22: veto slots per pass, 4 answer tokens (bench.py:565-575)
+VQA_TOKENS = 4
+VQA_DENSITIES = (8, 32)  # phase 21: valid slots of the 8 frames x 8 slots: one pass and four
+TINY_VQA_ATOL = 1e-3  # phase 21: tiny f32 prefix and first-token logits, card against CPU
+# Phase 21: first-token logits of a slot asked in a capacity-8 pass against
+# the dense 64-slot batch (bf16 GEMM tilings follow the batch) must agree to
+# VQA_LOGIT_ATOL; a slot whose top-2 margin is at most VQA_TIE is a near tie
+# and may answer otherwise, and is counted.
+VQA_LOGIT_ATOL = 0.05
+VQA_TIE = 2 * VQA_LOGIT_ATOL
+VQA_STEPS = 8  # phase 21: fused dispatches with the veto (in the spin)
+VQA_FARM_EPISODES = 8  # phase 21: the veto's farm, open_room_plan episodes
+VQA_FARM_STEPS = 8
+TINY_ZOE_ATOL = 1e-4  # phase 22: tiny ZoeDepth's metric depth (m), card against CPU
+ZOE_LANE_ATOL = 1e-4  # phase 22: normalised depth, a lane at B=8 against B=1 (cuDNN picks algorithms per batch)
 
 
 def log(msg: str) -> None:
@@ -1755,6 +1793,355 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
     return launches
 
 
+# --- phase 21 ----------------------------------------------------------------
+def question_encoder(vocab_size: int):
+    """The full stack's question tokens: toy WordPiece ids (8 tokens)
+    modulo T5's vocabulary."""
+    tok = WordPieceTokenizer(toy_vocab(), max_len=8)
+
+    def encode(text):
+        ids, mask = tok.encode_batch([text])
+        return ids[0] % vocab_size, mask[0]
+
+    return encode
+
+
+def make_veto(bridge: BLIP2VQA, yes: int, capacity=None) -> VQAVeto:
+    return VQAVeto(vqa=bridge.t5, encode_text=question_encoder(bridge.cfg.t5.vocab_size), yes_token_id=yes,
+                   image_prefix=lambda rgb: bridge.image_prefix(bridge.preprocess(rgb)),
+                   max_answer_tokens=VQA_TOKENS, slot_capacity=capacity)
+
+
+@torch.inference_mode()
+def first_logits(veto: VQAVeto, images: torch.Tensor, phrase: str) -> torch.Tensor:
+    """(N, vocab) logits of the first answer token of annotated frames, as
+    ``veto.vqa.generate`` computes them for one batch of N."""
+    ids, mask = veto._question_tokens(phrase)
+    n = images.shape[0]
+    t5 = veto.vqa
+    with exact_f32(images.device):
+        enc, m = t5.module.encode(ids.expand(n, -1), mask.expand(n, -1), veto.image_prefix(images))
+        tokens = torch.zeros((n, veto.max_answer_tokens + 1), dtype=torch.int64, device=images.device)
+        return t5.module.decode_logits(tokens, enc, m)[:, 0].float()
+
+
+def top2_margin(logits: torch.Tensor) -> torch.Tensor:
+    top = torch.topk(logits, 2, dim=-1).values
+    return top[..., 0] - top[..., 1]
+
+
+def phase_tiny_vqa() -> None:
+    """A tiny BLIP2VQA and its veto, the same f32 weights on the CPU and the
+    card: the bucket tables, the visual prefix, the first-token logits, the
+    tokens away from near ties, and the vetoes."""
+    cfg = BLIP2VQAConfig.tiny()
+    cpu = BLIP2VQA.init_random(cfg, seed=0, device="cpu")
+    gpu = BLIP2VQA(cfg, copy.deepcopy(cpu.module).to(DEV), type(cpu.t5)(cfg.t5, copy.deepcopy(cpu.t5.module).to(DEV)))
+    for lq, lk, bidir in ((16, 16, True), (VQA_TOKENS + 1, VQA_TOKENS + 1, False), (300, 300, True), (300, 300, False)):
+        same = torch.equal(bucket_table(lq, lk, bidir, 32, 128, DEV).cpu(),
+                           bucket_table(lq, lk, bidir, 32, 128, torch.device("cpu")))
+        check(same, f"bucket table {lq}x{lk} bidirectional={bidir}: card differs from CPU")
+    rng = np.random.default_rng(0)
+    rgb = torch.from_numpy(rng.integers(0, 256, (3, 48, 64, 3), dtype=np.uint8))
+    masks = torch.zeros((3, 2, 48, 64), dtype=torch.bool)
+    for i in range(3):
+        masks[i, 0, 8 + 4 * i:30, 10:40 - 3 * i] = True
+        masks[i, 1, 20:44, 30 + 2 * i:60] = True
+    valid = torch.tensor([[True, False], [True, True], [False, True]])
+    veto_cpu, veto_gpu = make_veto(cpu, 0), make_veto(gpu, 0)
+    imgs_cpu = veto_cpu.annotate(rgb, masks)
+    imgs_gpu = veto_gpu.annotate(rgb.to(DEV), masks.to(DEV))
+    check(torch.equal(imgs_gpu.cpu(), imgs_cpu), "tiny veto: annotated frames differ between card and CPU")
+    prefix_err = float((gpu.image_prefix(gpu.preprocess(imgs_gpu)).cpu()
+                        - cpu.image_prefix(cpu.preprocess(imgs_cpu))).abs().max())
+    lc = first_logits(veto_cpu, imgs_cpu, COCO_TARGET)
+    lg = first_logits(veto_gpu, imgs_gpu, COCO_TARGET).cpu()
+    logit_err = float((lg - lc).abs().max())
+    decided = top2_margin(lc) > 2 * TINY_VQA_ATOL
+    tokens_equal = torch.equal(lg.argmax(-1)[decided], lc.argmax(-1)[decided])
+    yes = int(lc.argmax(-1)[0])  # the answer slot 0 gets: some slots keep, some drop
+    for cap in (None, 2):
+        want = make_veto(cpu, yes, cap)(rgb, masks, valid, COCO_TARGET)
+        got = make_veto(gpu, yes, cap)(rgb.to(DEV), masks.to(DEV), valid.to(DEV), COCO_TARGET).cpu()
+        check(torch.equal(got[decided.reshape(3, 2)], want[decided.reshape(3, 2)]),
+              f"tiny veto (capacity {cap}): card differs from CPU off near ties")
+    log(f"[tiny-vqa] bucket tables equal card and CPU (16x16, 5x5, 300x300, both directions); prefix "
+        f"max_abs_err={prefix_err:.3e}, first-token logits max_abs_err={logit_err:.3e} (tol {TINY_VQA_ATOL}); "
+        f"tokens equal on the {int(decided.sum())} of {len(decided)} slots off near ties: {tokens_equal}; "
+        f"vetoes equal, dense and at capacity 2 (yes = {yes}: kept {int(want.sum())} of {int(valid.sum())})")
+    check(prefix_err <= TINY_VQA_ATOL and logit_err <= TINY_VQA_ATOL, "tiny VQA: card differs from CPU")
+    check(tokens_equal, "tiny VQA: first tokens differ off near ties")
+
+
+def build_vqa_bridge() -> BLIP2VQA:
+    """BLIP-2 flan-T5-XL at full width (EVA ViT-g 224 px, the Q-Former with
+    32 queries, flan-t5-xl) with random weights from seed 0 drawn on the
+    card, served bf16 under cast_for_serving."""
+    bridge = BLIP2VQA.init_random(BLIP2VQAConfig.production(), seed=0, device=DEV)
+    cast_for_serving(bridge.module)
+    cast_for_serving(bridge.t5.module)
+    return bridge
+
+
+def veto_slots(b: int, k: int, h: int, w: int, density: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, K, H, W) box masks from a seeded generator and (B, K) validity
+    with ``density`` valid slots, the first density // B of each frame."""
+    gen = torch.Generator(device=DEV).manual_seed(21)
+    lo = torch.rand((b, k, 2), generator=gen, device=DEV) * 0.6
+    size = 0.1 + torch.rand((b, k, 2), generator=gen, device=DEV) * 0.3
+    xyxy = torch.cat([lo, lo + size], dim=-1)  # x0, y0, x1, y1
+    valid = (torch.arange(k, device=DEV) < density // b).expand(b, k).contiguous()
+    return box_masks(xyxy, torch.ones_like(valid), h, w), valid
+
+
+def timed(label: str, fn, smi: str) -> dict:
+    """Wall (median of 5), device time and idle share (torch.profiler),
+    launches and host syncs of one call of ``fn``."""
+    kernels, copies, busy, wall = launch_profile(fn)
+    r = dict(kernels=kernels, copies=copies, ms=wall_ms(fn, reps=5, warmup=1), device_ms=busy, idle=1 - busy / wall,
+             syncs=host_syncs(fn))
+    log(f"[vqa-time] {label}: {r['ms']:.2f} ms wall (median of 5); under the profiler {r['device_ms']:.2f} ms of "
+        f"device time, idle share {r['idle']:.3f}; {r['kernels']} kernel launches + {r['copies']} copies/sets, "
+        f"{r['syncs']} host syncs; on {smi}")
+    return r
+
+
+def phase_vqa_veto(bridge: BLIP2VQA, rgb: torch.Tensor, smi: str) -> dict:
+    b, h, w = rgb.shape[:3]
+    k = VLFMConfig().max_detections_per_frame
+    masks, _ = veto_slots(b, k, h, w, b * k)
+    probe = make_veto(bridge, 0)
+    images = probe.annotate(rgb, masks)
+    dense_logits = first_logits(probe, images, COCO_TARGET)  # all B*K slots in one batch
+    launches = dict(layer_norm=0, attention=0)
+    for density in VQA_DENSITIES:
+        _, valid = veto_slots(b, k, h, w, density)
+        flat_valid = valid.reshape(-1)
+        yes = int(dense_logits[flat_valid].argmax(-1)[0])  # the first valid slot's answer: some keep, some drop
+        gated = make_veto(bridge, yes, VQA_CAPACITY)
+        layer_norm.launches = attention.launches = 0
+        out = gated(rgb, masks, valid, COCO_TARGET)
+        torch.cuda.synchronize()
+        passes = -(-density // VQA_CAPACITY)
+        got = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+        for name in launches:
+            launches[name] += got[name]
+        log(f"[vqa] {density} valid slots of {b}x{k} at capacity {VQA_CAPACITY}: {passes} passes; K1 "
+            f"{got['layer_norm']} (expect {passes * LAUNCHES_IMAGE}, {got['layer_norm'] / passes:.0f} per pass), K3 "
+            f"{got['attention']} (expect {passes * ATTN_LAUNCHES_IMAGE}, {got['attention'] / passes:.0f} per pass)")
+        check(got == dict(layer_norm=passes * LAUNCHES_IMAGE, attention=passes * ATTN_LAUNCHES_IMAGE),
+              f"veto at {density} valid slots: K1 and K3 launch counts")
+        # The gated passes' first-token logits (the same capacity-8 windows
+        # of the valid-first order) against the dense batch's.
+        order = torch.argsort((~flat_valid).to(torch.uint8), stable=True)[:passes * VQA_CAPACITY]
+        gated_logits = torch.cat([first_logits(gated, images[order[i:i + VQA_CAPACITY]], COCO_TARGET)
+                                  for i in range(0, len(order), VQA_CAPACITY)])
+        sel = order[:density]
+        err = float((gated_logits[:density] - dense_logits[sel]).abs().max())
+        dense_prefix = probe.image_prefix(images)
+        prefix_err = max(float((gated.image_prefix(images[order[i:i + VQA_CAPACITY]])
+                                - dense_prefix[order[i:i + VQA_CAPACITY]]).abs().max())
+                         for i in range(0, len(order), VQA_CAPACITY))
+        log(f"[vqa] {density} valid slots: visual prefix in passes of {VQA_CAPACITY} against B={len(images)} "
+            f"max_abs_err={prefix_err:.3e}; first-token logits: std {float(dense_logits.std()):.3f}, top-2 margins of "
+            f"the valid slots {[round(float(m), 3) for m in top2_margin(dense_logits[sel])]}")
+        ties = top2_margin(dense_logits[sel]) <= VQA_TIE
+        dense_out = make_veto(bridge, yes)(rgb, masks, valid, COCO_TARGET)
+        differ = (out.reshape(-1)[sel] != dense_out.reshape(-1)[sel])
+        log(f"[vqa] {density} valid slots: gated against dense first-token logits max_abs_err={err:.3e} (tol "
+            f"{VQA_LOGIT_ATOL}); near ties (top-2 margin <= {VQA_TIE}) {int(ties.sum())}; vetoes differ on "
+            f"{int(differ.sum())} valid slots, all near ties: {bool((~differ | ties).all())}; yes = {yes}, kept "
+            f"{int(out.sum())} of {density}; answers {gated_logits[:density].argmax(-1).tolist()}")
+        check(err <= VQA_LOGIT_ATOL, f"veto at {density} valid slots: gated logits differ from dense")
+        check(bool((~differ | ties).all()), f"veto at {density} valid slots: gated differs from dense off near ties")
+        check(bool((out <= valid).all()), "the veto validated an invalid slot")
+        timed(f"B={b} veto, {density} valid slots ({passes} passes of {VQA_CAPACITY}, {VQA_TOKENS} answer tokens)",
+              lambda: gated(rgb, masks, valid, COCO_TARGET).cpu(), smi)
+    return launches
+
+
+class CountingVeto:
+    """The pipeline's veto, recording each call's valid slots and frames
+    with a detection before the veto (gated SAM's frames) as device
+    tensors (no host read until the run ends)."""
+
+    def __init__(self, veto):
+        self.veto, self.valid, self.frames = veto, [], []
+
+    def __call__(self, rgb, masks, valid, phrases, cls=None):
+        self.valid.append(valid.sum())
+        self.frames.append(valid.any(dim=1).sum())
+        return self.veto(rgb, masks, valid, phrases, cls)
+
+    def __getattr__(self, name):
+        return getattr(self.veto, name)
+
+
+def phase_vqa_full_stack(engine: PerceptionEngine, det, sam, bridge: BLIP2VQA, spec, smi: str) -> dict:
+    b = BATCH_LANES
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY, use_vqa=True,
+                              vqa_slot_capacity=VQA_CAPACITY)
+    env_cfg = EnvConfig()
+    h, w = env_cfg.height, env_cfg.width
+    pointnav = PointNavPolicy.init_random(seed=0, depth_shape=tuple(cfg.depth_image_shape), device=DEV)
+    perception = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam, blip2_vqa=bridge,
+                                     det_threshold=cfg.non_coco_threshold, device=DEV)
+    vetoes = perception.pipeline.vqa_veto = CountingVeto(perception.pipeline.vqa_veto)
+    layout = full_stack_layout(b, h, w)
+    packed = perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET, layout=layout)
+    unpacked = perception.make_fused_step(pointnav, spec, cfg, COCO_TARGET)
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = packing.pack_views(buf.numpy(), layout)
+    envs = [FakeObjectNavEnv(two_room_plan(seed=lane), env_cfg) for lane in range(b)]
+    obs_list = [e.reset() for e in envs]
+    perception.engine.text_features(COCO_TARGET)
+    perception.pipeline._queries(COCO_TARGET)
+    perception.pipeline.coco_detector._coco_queries()
+    perception.pipeline.vqa_veto._question_tokens(COCO_TARGET)
+    state = ITM.create_state(spec, cfg, batch=b, device=DEV)
+    record = []
+    layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    t0 = time.perf_counter()
+    for k in range(VQA_STEPS):
+        for j, o in enumerate(obs_list):
+            views["depth"][j], views["rgb"][j] = o["depth"], o["rgb"]
+            views["heading"][j], views["xy"][j] = o["heading"], o["robot_xy"]
+        views["seeds"][:], views["steps"][:], views["reset"][:] = np.arange(b), k, 0
+        inputs = {name: v.copy() for name, v in views.items()}
+        out, state = packed(state, None, buf)
+        out_np = out.cpu().numpy()
+        record.append(dict(inputs=inputs, out=out))
+        for i, env in enumerate(envs):
+            if not obs_list[i]["done"]:
+                obs_list[i] = env.step(int(out_np[i, 0]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    frames = [int(f) for f in vetoes.frames]
+    n_valid = [int(v) for v in vetoes.valid]
+    sam_passes = sum(-(-f // SAM_CAPACITY) for f in frames)
+    veto_passes = [-(-n // VQA_CAPACITY) for n in n_valid]
+    ln_step = LAUNCHES_IMAGE + 2 * LAUNCHES_DETECT
+    want = dict(layer_norm=VQA_STEPS * ln_step + LAUNCHES_IMAGE * sum(veto_passes),
+                attention=ATTN_LAUNCHES_IMAGE * (VQA_STEPS + sum(veto_passes)),
+                mbconv_chain=chain_launches(sam.cfg.tinyvit) * sam_passes)
+    kept = np.stack([r["out"][:, 1].cpu().numpy() for r in record]).sum(axis=1).astype(int).tolist()
+    log(f"[vqa-stack] {b} lanes of two_room_plan at {w}x{h}, {VQA_STEPS} fused dispatches with the veto (BLIP-2 "
+        f"flan-T5-XL at capacity {VQA_CAPACITY}, {VQA_TOKENS} answer tokens): {wall:.2f} s incl. first calls; valid "
+        f"slots asked per dispatch {n_valid}, veto passes {veto_passes}; lanes with target_detected per step {kept}; "
+        f"K1 {launches['layer_norm']} (expect {want['layer_norm']}), K3 {launches['attention']} (expect "
+        f"{want['attention']}), K2 {launches['mbconv_chain']} (expect {want['mbconv_chain']})")
+    check(launches == want, "full stack with the veto: K1, K3 and K2 launch counts")
+    check(sum(veto_passes) > 0, "the full stack's veto asked no slot")
+    st = ITM.create_state(spec, cfg, batch=b, device=DEV)
+    names = ("reset", "depth", "heading", "xy", "rgb", "seeds", "steps")
+    for k, r in enumerate(record):
+        action, det_flag, goal, st = unpacked(st, None, *(r["inputs"][n] for n in names))
+        got = torch.cat([action[:, None].float(), det_flag[:, None].float(), goal], dim=1)
+        check(torch.equal(got, r["out"]), f"veto full stack step {k}: unpacked outputs differ from packed")
+    log(f"[vqa-stack] the unpacked signature gives every lane's actions, detected flags and goals bit for bit over "
+        f"the {VQA_STEPS} steps")
+
+    # One dispatch with the veto beside one without it, on the last inputs.
+    plain_cfg = dataclasses.replace(cfg, use_vqa=False)
+    plain = FullStackPerception(plain_cfg, itm=engine.itm, detector=det, sam=sam,
+                                det_threshold=cfg.non_coco_threshold, device=DEV)
+    plain_step = plain.make_fused_step(pointnav, spec, plain_cfg, COCO_TARGET, layout=layout)
+    st = state._replace(steps=state.steps + 1)
+    rows = {}
+    for label, fused in (("without the veto", plain_step), ("with the veto", packed)):
+        rows[label] = step_timings(f"fused dispatch {label}", b, lambda: fused(st, None, buf)[0].cpu(), smi)
+    log(f"[vqa-stack-time] B={b}: the veto's dispatch takes {rows['with the veto']['ms'] / rows['without the veto']['ms']:.2f}x "
+        f"the wall time and {rows['with the veto']['device_ms'] / rows['without the veto']['device_ms']:.2f}x the device "
+        f"time of the dispatch without it; on {smi}")
+
+    seeds = list(range(VQA_FARM_EPISODES))
+    farm, fstats = run_episodes_farm(seeds, lanes=b, pointnav="greedy", spec=spec, cfg=cfg,
+                                     plan_name="open_room_plan", env_cfg=env_cfg, workers=FARM_WORKERS,
+                                     max_steps=VQA_FARM_STEPS, perception=perception, target=COCO_TARGET)
+    check(set(farm) == set(seeds) and all(r.steps > 0 for r in farm.values()), "the veto's farm lost an episode")
+    res = [farm[s] for s in seeds]
+    log(f"[vqa-farm] the full stack with the veto in run_episodes_farm: {VQA_FARM_EPISODES} open_room_plan episodes "
+        f"(at most {VQA_FARM_STEPS} steps) on {b} lanes, all finished, steps {[r.steps for r in res]}, detected "
+        f"{sum(r.target_detected for r in res)}; {farm_summary(fstats)}; on {smi}")
+    return launches
+
+
+# --- phase 22 ----------------------------------------------------------------
+def phase_tiny_zoedepth() -> None:
+    for name, cfg in (("NYU", ZoeDepthConfig.tiny_test()),
+                      ("NK", dataclasses.replace(ZoeDepthConfig.tiny_test(),
+                                                 bin_configurations=ZoeDepthConfig.nk().bin_configurations))):
+        cpu = ZoeDepth.init_random(cfg, seed=0, device="cpu")
+        gpu = ZoeDepth(cfg, copy.deepcopy(cpu.module).to(DEV))
+        px = torch.from_numpy(np.random.default_rng(1).normal(size=(2, 64, 64, 3)).astype(np.float32))
+        want = cpu.predict(px)
+        got = gpu.predict(px.to(DEV)).cpu()
+        err = float((got - want).abs().max())
+        rgb = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8))
+        inf_err = float((gpu.infer_depth(rgb.to(DEV), 0.5, 5.0).cpu() - cpu.infer_depth(rgb, 0.5, 5.0)).abs().max())
+        log(f"[tiny-zoe] {name}: card vs CPU metric depth max_abs_err={err:.3e} m, infer_depth {inf_err:.3e} "
+            f"(tol {TINY_ZOE_ATOL}); depth in [{float(want.min()):.3f}, {float(want.max()):.3f}] m")
+        check(err <= TINY_ZOE_ATOL and inf_err <= TINY_ZOE_ATOL, f"tiny ZoeDepth {name}: card differs from CPU")
+
+
+def phase_zoedepth(engine: PerceptionEngine, det, sam, rgb: torch.Tensor, smi: str) -> None:
+    zoe = ZoeDepth.init_random(ZoeDepthConfig.nk(), seed=0, device=DEV)
+    cast_for_serving(zoe.module)
+    n_params = sum(p.numel() for p in zoe.module.parameters())
+    cam = VLFMConfig().camera
+    b = rgb.shape[0]
+    t0 = time.perf_counter()
+    depth = zoe.infer_depth(rgb, cam.min_depth, cam.max_depth)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    check(depth.shape == rgb.shape[:3] and depth.dtype == torch.float32, "ZoeD_NK depth shape")
+    check(bool(torch.isfinite(depth).all() and (depth >= 0).all() and (depth <= 1).all()), "ZoeD_NK depth in [0, 1]")
+    worst = max(float((zoe.infer_depth(rgb[i:i + 1], cam.min_depth, cam.max_depth) - depth[i:i + 1]).abs().max())
+                for i in range(b))
+    log(f"[zoe] ZoeD_NK (BEiT-L/16 at 384 px, DPT, two metric heads and the router; {n_params / 1e6:.1f} M "
+        f"parameters, bf16 weights, f32 stream) on the {b} spin frames at {rgb.shape[2]}x{rgb.shape[1]}: "
+        f"{first:.2f} s incl. first call; depth in [{float(depth.min()):.4f}, {float(depth.max()):.4f}], mean "
+        f"{float(depth.mean()):.4f}; each lane against its B=1 run max_abs_err={worst:.3e} (tol {ZOE_LANE_ATOL})")
+    check(worst <= ZOE_LANE_ATOL, "ZoeD_NK: a lane at B=8 differs from its B=1 run")
+    for lanes in (1, b):
+        def infer():
+            zoe.infer_depth(rgb[:lanes], cam.min_depth, cam.max_depth)
+
+        kernels, copies, busy, wall = launch_profile(infer)
+        ms = wall_ms(infer, reps=5, warmup=1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            infer()
+            torch.cuda.synchronize()
+        by_name = {}
+        for e in device_events(prof):
+            n, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (n + 1, us + e.time_range.elapsed_us())
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:3]
+        log(f"[zoe-time] B={lanes} infer_depth: {ms:.2f} ms wall (median of 5), {ms / lanes:.2f} ms per frame; under "
+            f"the profiler {busy:.2f} ms of device time, idle share {1 - busy / wall:.3f}, {kernels} kernel launches "
+            f"+ {copies} copies/sets; most launched: "
+            f"{'; '.join(f'{name[:70]} x{n} {us / 1e3:.2f} ms' for name, (n, us) in top)}; on {smi}")
+
+    # The fallback: all-ones depth infers, sensor depth comes back unchanged.
+    perception = FullStackPerception(VLFMConfig(), itm=engine.itm, detector=det, sam=sam, monodepth=zoe,
+                                     det_threshold=0.0, device=DEV)
+    frame = rgb[0].cpu().numpy()
+    ones = np.ones(frame.shape[:2], np.float32)
+    _, _, valid, inferred = perception(frame, OPEN_TARGET, ones)
+    check(bool(valid.any()), "the fallback's frame needs a valid detection")
+    check(inferred is not ones and inferred.shape == ones.shape and not np.all(inferred == 1.0),
+          "all-ones depth was not inferred")
+    direct = zoe.infer_depth(rgb[:1], cam.min_depth, cam.max_depth)[0].cpu().numpy()
+    check(np.abs(inferred - direct).max() <= ZOE_LANE_ATOL, "the fallback's depth differs from ZoeD_NK's on the frame")
+    sensor = spin_views(1)[0]["depth"]
+    check(perception(frame, OPEN_TARGET, sensor)[3] is sensor, "sensor depth did not come back unchanged")
+    log(f"[zoe] FullStackPerception with all-ones depth and {int(valid.sum())} valid detections: depth inferred "
+        f"(mean {float(inferred.mean()):.4f}, equal to infer_depth on the frame); with the sensor's depth the same "
+        f"object comes back")
+
+
 def farm_summary(stats) -> str:
     return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
             f"{stats.dispatches} dispatches, "
@@ -1826,6 +2213,19 @@ def main() -> None:
     objmap_run = phase_object_map(det_cfg, det, sam, smi)
     episodes_run, recycled = phase_batched_episodes(engine, spec, cfg, smi)
     full_stack_run = phase_full_stack(engine, det, sam, spec, recycled, smi)
+
+    phase_tiny_vqa()
+    bridge = build_vqa_bridge()
+    n_vqa = sum(p.numel() for p in bridge.module.parameters())
+    n_t5 = sum(p.numel() for p in bridge.t5.module.parameters())
+    log(f"[vqa] BLIP-2 flan-T5-XL: visual prefix (EVA ViT-g, Q-Former, projection) {n_vqa / 1e9:.3f} B + flan-t5-xl "
+        f"{n_t5 / 1e9:.3f} B parameters, bf16 weights; device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    veto_run = phase_vqa_veto(bridge, rgb, smi)
+    vqa_stack_run = phase_vqa_full_stack(engine, det, sam, bridge, spec, smi)
+    del bridge
+    phase_tiny_zoedepth()
+    phase_zoedepth(engine, det, sam, rgb, smi)
     del engine, det, sam
 
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
@@ -1839,21 +2239,27 @@ def main() -> None:
     check(episodes_run["layer_norm"] > 0 and episodes_run["attention"] > 0, "the decision step launched no K1 or K3")
     check(all(full_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the full-stack step launched no K1, K2 or K3")
+    check(veto_run["layer_norm"] > 0 and veto_run["attention"] > 0, "the veto launched no K1 or K3")
+    check(all(vqa_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the full stack with the veto launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
                           {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
                            "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
                            "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
-                           "full_stack_step": full_stack_run["layer_norm"]}, ln),
+                           "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
+                           "vqa_full_stack_step": vqa_stack_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],
-                           "full_stack_step": full_stack_run["mbconv_chain"]}, k2),
+                           "full_stack_step": full_stack_run["mbconv_chain"],
+                           "vqa_full_stack_step": vqa_stack_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
                            "decision_step": episodes_run["attention"],
-                           "full_stack_step": full_stack_run["attention"]}, k3),
+                           "full_stack_step": full_stack_run["attention"], "vqa_veto": veto_run["attention"],
+                           "vqa_full_stack_step": vqa_stack_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

@@ -671,3 +671,83 @@ def test_packed_fused_step_card_matches_cpu(dev, compressed):
         assert torch.equal(outs[dev][:, :2], outs["cpu"][:, :2])
         torch.testing.assert_close(outs[dev][:, 2:], outs["cpu"][:, 2:], atol=1e-5, rtol=0)
     assert states[dev].steps.tolist() == [2, 1]
+
+
+@pytest.mark.parametrize("bidirectional", [True, False], ids=["encoder", "decoder"])
+def test_t5_bucket_table_on_the_card_equals_the_cpu(dev, bidirectional):
+    """The bucket table is an integer cut of a float log: it is built on the
+    host and copied, so the card's equals the CPU's at every shape, and the
+    card's own log gives the same table too."""
+    from vlfm_tpu_torch.models.t5_vqa import bucket_table, relative_position_bucket
+
+    for lq, lk in ((5, 5), (40, 40), (300, 300), (5, 300)):
+        want = bucket_table(lq, lk, bidirectional, 32, 128, torch.device("cpu"))
+        assert torch.equal(bucket_table(lq, lk, bidirectional, 32, 128, dev).cpu(), want)
+        rel = torch.arange(lk, device=dev)[None, :] - torch.arange(lq, device=dev)[:, None]
+        assert torch.equal(relative_position_bucket(rel, bidirectional, 32, 128).cpu().long(), want)
+
+
+@pytest.mark.parametrize("two_domains", [False, True], ids=["nyu", "nk"])
+def test_tiny_zoedepth_card_matches_cpu(dev, two_domains):
+    from vlfm_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
+
+    cfg = ZoeDepthConfig.tiny_test()
+    if two_domains:
+        cfg = dataclasses.replace(cfg, bin_configurations=ZoeDepthConfig.nk().bin_configurations)
+    cpu = ZoeDepth.init_random(cfg, seed=0, device="cpu")
+    gpu = ZoeDepth(cfg, copy.deepcopy(cpu.module).to(dev))
+    px = torch.from_numpy(np.random.default_rng(1).normal(size=(3, 64, 64, 3)).astype(np.float32))
+    torch.testing.assert_close(gpu.predict(px.to(dev)).cpu(), cpu.predict(px), atol=1e-4, rtol=0)
+    rgb = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 48, 64, 3), dtype=np.uint8))
+    torch.testing.assert_close(gpu.infer_depth(rgb.to(dev), 0.5, 5.0).cpu(), cpu.infer_depth(rgb, 0.5, 5.0),
+                               atol=1e-4, rtol=0)
+
+
+def test_vqa_fused_step_card_matches_cpu(dev):
+    """The full stack with the VQA veto (tiny f32 BLIP2-ITM, OWL-ViT,
+    MobileSAM and BLIP2VQA; the veto gated at 2 slots) on the card against
+    the CPU: two packed dispatches on 2 lanes, actions and detections
+    equal, goals within 1e-5 m."""
+    from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
+    from vlfm_tpu_torch.models.t5_vqa import T5VQA
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    h, w = 48, 64
+    cfg = TCONFIG.VLFMConfig(camera=TCONFIG.CameraConfig(height=h, width=w), max_frontiers=16,
+                             max_frontier_cells=256, object_map_slots=8, object_map_points_per_slot=128,
+                             max_detections_per_frame=4, use_vqa=True, vqa_slot_capacity=2)
+    spec = GridSpec2D(512, 20, 160)
+    itm_cpu = BLIP2ITM.init_random(dataclasses.replace(BLIP2ITMConfig.tiny(), compute_dtype=torch.float32), seed=0,
+                                   device="cpu")
+    vqa_cpu = BLIP2VQA.init_random(BLIP2VQAConfig.tiny(), seed=0, device="cpu")
+    cpu = FullStackPerception(cfg, itm=itm_cpu, blip2_vqa=vqa_cpu, device="cpu")
+    det, sam = cpu.pipeline.detector, cpu.pipeline.sam
+    gpu = FullStackPerception(
+        cfg, itm=BLIP2ITM(itm_cpu.cfg, copy.deepcopy(itm_cpu.module).to(dev)),
+        detector=type(det)(det.cfg, copy.deepcopy(det.module).to(dev)),
+        sam=SAM(sam.cfg, copy.deepcopy(sam.module).to(dev)),
+        blip2_vqa=BLIP2VQA(vqa_cpu.cfg, copy.deepcopy(vqa_cpu.module).to(dev),
+                           T5VQA(vqa_cpu.cfg.t5, copy.deepcopy(vqa_cpu.t5.module).to(dev))), device=dev)
+    layout = PK.build_layout([("depth", "float32", (2, h, w)), ("rgb", "uint8", (2, h, w, 3)),
+                              ("heading", "float32", (2,)), ("xy", "float32", (2, 2)), ("seeds", "int32", (2,)),
+                              ("steps", "int32", (2,)), ("reset", "uint8", (2,))])
+    steps = {d: p.make_fused_step("greedy", spec, cfg, "toilet", layout=layout) for d, p in (("cpu", cpu), (dev, gpu))}
+    states = {d: ITM.create_state(spec, cfg, batch=2, device=d) for d in steps}
+    envs = [ENV.FakeObjectNavEnv(ENV.open_room_plan(seed=s), ENV.EnvConfig(width=w, height=h)) for s in (0, 1, 2)]
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = PK.pack_views(buf.numpy(), layout)
+    dispatches = [([envs[0].reset(), envs[1].reset()], (0, 1), (0, 0), (0, 0))]
+    dispatches.append(([envs[0].step(ENV.TURN_LEFT), envs[2].reset()], (0, 2), (1, 0), (0, 1)))
+    for obs, seeds, steps_, reset in dispatches:
+        for j, o in enumerate(obs):
+            views["depth"][j], views["rgb"][j] = o["depth"], o["rgb"]
+            views["heading"][j], views["xy"][j] = o["heading"], o["robot_xy"]
+        views["seeds"][:], views["steps"][:], views["reset"][:] = seeds, steps_, reset
+        outs = {}
+        for d, step in steps.items():
+            out, states[d] = step(states[d], None, buf)
+            outs[d] = out.cpu()
+        assert torch.equal(outs[dev][:, :2], outs["cpu"][:, :2])
+        torch.testing.assert_close(outs[dev][:, 2:], outs["cpu"][:, 2:], atol=1e-5, rtol=0)
+    assert torch.equal(states[dev].objmap.cursor.cpu(), states["cpu"].objmap.cursor)

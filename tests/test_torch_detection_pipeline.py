@@ -127,5 +127,6 @@ def test_query_cache_and_vqa(models):
     tpipe(rgb, "fireplace")
     assert list(tpipe._query_cache) == ["toilet", "fireplace"]
     (_, _), (tdet, tsam) = models
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    # the veto is ported (tests/test_torch_vqa_veto.py); use_vqa without one is refused
+    with pytest.raises(ValueError, match="vqa_veto"):
         P.DetectionPipeline(tdet, tsam, fake_encode, use_vqa=True)

@@ -14,9 +14,13 @@ from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.mapping import object_map, obstacle_map, value_map
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM
+from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA
 from vlfm_tpu_torch.models.grounding_dino import GroundingDinoDetector
+from vlfm_tpu_torch.models.monodepth import MonocularDepth
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetector
 from vlfm_tpu_torch.models.sam import SAM
+from vlfm_tpu_torch.models.t5_vqa import T5VQA
+from vlfm_tpu_torch.models.zoedepth import ZoeDepth
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.policy import acyclic
 
@@ -29,6 +33,13 @@ CONSTRUCTORS = {
     "OwlViTDetector.from_jax_params": OwlViTDetector.from_jax_params,
     "GroundingDinoDetector.init_random": GroundingDinoDetector.init_random,
     "GroundingDinoDetector.from_jax_params": GroundingDinoDetector.from_jax_params,
+    "T5VQA.init_random": T5VQA.init_random,
+    "T5VQA.from_jax_params": T5VQA.from_jax_params,
+    "BLIP2VQA.init_random": BLIP2VQA.init_random,
+    "BLIP2VQA.from_jax_params": BLIP2VQA.from_jax_params,
+    "ZoeDepth.init_random": ZoeDepth.init_random,
+    "ZoeDepth.from_jax_params": ZoeDepth.from_jax_params,
+    "MonocularDepth.init_random": MonocularDepth.init_random,
     "value_map.create": value_map.create,
     "obstacle_map.create": obstacle_map.create,
     "obstacle_map.from_numpy": obstacle_map.from_numpy,

@@ -15,7 +15,18 @@ success, detection, seen and failure cause equal, SPL within 1e-6). Port
 only: the packed and unpacked fused steps agree bit for bit (with f32
 full-size records and with u16 half-size depth and half-size RGB), the callable
 is cached and reads the models at each call, frames that crossed at half
-size give masks on the camera grid, and the options not ported raise.
+size give masks on the camera grid, and misused options raise.
+
+With ``cfg.use_vqa`` (a tiny BLIP2VQA bridge, seeded numpy trees, and the
+yes token the port answers first on a valid slot, so that the veto keeps
+some detections and drops others): ``batch`` ungated and with the veto
+gated at 2 slots, the packed fused step and ``run_full_stack_episode`` equal
+JAX's as above, and the veto only narrows. The monocular-depth fallback
+(tiny ZoeDepth, the same weights on both sides): depth is inferred for an
+all-ones depth image (to 1e-6 of JAX's) and the sensor's depth comes back as
+the same object otherwise (JAX's test_monodepth_triggers_on_all_ones); an
+episode whose camera gives all-ones depth hands ``step`` the inferred depth
+on the steps with a detection and None on the others, and equals JAX's.
 
 Also the JAX package's half-size RGB fault (ROADMAP Queue 3): its object
 map samples pixel indices in a half-size mask's flattened grid and decodes
@@ -258,8 +269,15 @@ def test_fused_step_is_cached_and_reads_the_models_at_each_call():
 @pytest.mark.parametrize("kw", [dict(cfg_vqa=True), dict(vqa=object()), dict(blip2_vqa=object()),
                                 dict(monodepth=object())], ids=["use_vqa", "vqa", "blip2_vqa", "monodepth"])
 def test_options_not_ported_raise(kw):
-    cfg = dataclasses.replace(CFG, use_vqa=kw.pop("cfg_vqa", False))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    """The VQA veto and the monocular-depth fallback are ported; what
+    remains is refused with a ValueError: a bare T5 without its
+    ``image_prefix`` (use_vqa), a veto model without ``cfg.use_vqa`` (vqa,
+    blip2_vqa), a depth model without ``infer_depth`` (monodepth)."""
+    use_vqa = kw.pop("cfg_vqa", False)
+    if use_vqa:
+        kw = dict(vqa=object())
+    cfg = dataclasses.replace(CFG, use_vqa=use_vqa)
+    with pytest.raises(ValueError):
         FS.FullStackPerception(cfg, device="cpu", **kw)
 
 
@@ -331,3 +349,166 @@ def test_half_size_frames_give_camera_grid_masks(stacks):
                                rgb.numpy(), np.int32([0, 1]), np.int32([0, 0]))
     assert action.tolist() == [ITM.TURN_LEFT] * 2 and bool(torch.isfinite(goal).all())
     assert st.obstacle.explored.any()
+
+
+# --- the VQA veto and the monocular-depth fallback ---------------------------------
+@pytest.fixture(scope="module")
+def vqa_bridges():
+    from tests.test_torch_blip2_vqa import bridges
+
+    return bridges()
+
+
+def _vqa_pair(stacks, vqa_bridges, capacity=None, yes=42):
+    jmodels, tmodels = stacks
+    jb, tb = vqa_bridges
+    jcfg = dataclasses.replace(JCFG, use_vqa=True, vqa_slot_capacity=capacity)
+    return (JFS.FullStackPerception(jcfg, **jmodels, blip2_vqa=jb, yes_token_id=yes),
+            FS.FullStackPerception(port_config(jcfg), **tmodels, blip2_vqa=tb, yes_token_id=yes, device="cpu"))
+
+
+@pytest.fixture(scope="module")
+def yes_token(stacks, vqa_bridges):
+    """The port's first answer on the first valid slot of the test frames."""
+    _, tp = _vqa_pair(stacks, vqa_bridges)
+    t5, answers = tp.vqa_bridge.t5, []
+    generate = t5.generate
+    t5.generate = lambda *a, **kw: answers.append(generate(*a, **kw)) or answers[-1]
+    try:
+        tp.batch(_frames(), "toilet")
+    finally:
+        t5.generate = generate
+    _, _, valid = _pair(stacks)[1].batch(_frames(), "toilet")  # the detections the veto was asked about
+    return int(answers[0][:, 0].reshape(valid.shape)[valid][0])
+
+
+@pytest.mark.parametrize("target,capacity", [("toilet", None), ("fireplace", 2)])
+def test_vqa_batch_matches_jax(stacks, vqa_bridges, yes_token, target, capacity):
+    jp, tp = _vqa_pair(stacks, vqa_bridges, capacity, yes_token)
+    rgb = _frames()
+    jc, jm, jv = jp.batch(rgb, target)
+    tc, tm, tv = tp.batch(rgb, target)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), atol=COS_ATOL, rtol=0)
+    np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+    assert float(np.mean(tm.numpy() != np.asarray(jm))) <= MASK_FLIPS
+    _, plain = _pair(stacks)
+    _, _, pv = plain.batch(rgb, target)
+    assert not (tv & ~pv).any(), "the veto only narrows"
+    if target == "toilet":
+        assert tv.any() and (pv & ~tv).any(), "the veto keeps some detections and drops others"
+
+
+def test_vqa_packed_fused_step_matches_jax(stacks, vqa_bridges, yes_token):
+    jp, tp = _vqa_pair(stacks, vqa_bridges, 2, yes_token)
+    jlayout, tlayout = _layout(JPK), _layout(PK)
+    jstep = jp.make_fused_step("greedy", JSPEC, JCFG, "toilet", layout=jlayout)
+    tstep = tp.make_fused_step("greedy", SPEC, CFG, "toilet", layout=tlayout)
+    jfresh = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (2, *x.shape)), JITM.create_state(JSPEC, JCFG))
+    jstate = jax.tree_util.tree_map(jnp.copy, jfresh)
+    tstate = ITM.create_state(SPEC, CFG, batch=2, device="cpu")
+    buf = np.zeros(tlayout.total, np.uint8)
+    views = PK.pack_views(buf, tlayout)
+    for obs, seeds, steps, reset in _dispatches():
+        _fill(views, obs, seeds, steps, reset)
+        jout, jstate = jstep(jstate, jfresh, jnp.asarray(buf))
+        tout, tstate = tstep(tstate, None, torch.from_numpy(buf.copy()))
+        jout, tout = np.asarray(jout), tout.numpy()
+        np.testing.assert_array_equal(tout[:, :2], jout[:, :2])
+        np.testing.assert_allclose(tout[:, 2:], jout[:, 2:], atol=GOAL_ATOL, rtol=0)
+    np.testing.assert_array_equal(tstate.objmap.cursor.numpy(), np.asarray(jstate.objmap.cursor))
+
+
+def test_vqa_run_full_stack_episode_matches_jax(stacks, vqa_bridges, yes_token):
+    jp, tp = _vqa_pair(stacks, vqa_bridges, None, yes_token)
+    env_kw = dict(width=W, height=H, max_steps=EPISODE_STEPS // 2)
+    jres, _ = JFS.run_full_stack_episode(JENV.FakeObjectNavEnv(JENV.open_room_plan(seed=1), JENV.EnvConfig(**env_kw)),
+                                         JSPEC, JCFG, perception=jp, seed=1)
+    tres, _ = FS.run_full_stack_episode(
+        TENV.FakeObjectNavEnv(TENV.open_room_plan(seed=1), TENV.EnvConfig(**env_kw)), SPEC, CFG, perception=tp, seed=1,
+        device="cpu")
+    assert tres.steps == jres.steps == EPISODE_STEPS // 2
+    for name in ("success", "target_detected", "target_seen", "failure_cause", "called_stop", "collisions"):
+        assert getattr(tres, name) == getattr(jres, name), name
+    for name in ("spl", "soft_spl", "path_length", "distance_to_goal"):
+        assert abs(getattr(tres, name) - getattr(jres, name)) <= SPL_ATOL, name
+
+
+@pytest.fixture(scope="module")
+def depth_models():
+    from vlfm_tpu.models import zoedepth as JZ
+    from vlfm_tpu_torch.models import zoedepth as Z
+
+    p = numpy_params(JZ.ZoeDepthModule(JZ.ZoeDepthJaxConfig.tiny_test()), jnp.zeros((1, 64, 64, 3)), seed=2)
+    return (JZ.ZoeDepth(JZ.ZoeDepthJaxConfig.tiny_test(), jax.tree_util.tree_map(jnp.asarray, p)),
+            Z.ZoeDepth.from_jax_params(Z.ZoeDepthConfig.tiny_test(), p, device="cpu"))
+
+
+def test_monodepth_triggers_on_all_ones(stacks, depth_models):
+    jmodels, tmodels = stacks
+    jz, tz = depth_models
+    jp = JFS.FullStackPerception(JCFG, **jmodels, monodepth=jz)
+    tp = FS.FullStackPerception(CFG, **tmodels, monodepth=tz, device="cpu")
+    rgb = _frames(1)[0]
+    ones = np.ones((H, W), np.float32)
+    _, _, valid, obj_depth = tp(rgb, "toilet", ones)
+    _, _, jvalid, jdepth = jp(rgb, "toilet", ones)
+    assert valid.any() and np.array_equal(valid, np.asarray(jvalid)), "the trigger needs a valid detection"
+    assert obj_depth.shape == ones.shape and not np.all(obj_depth == 1.0), "depth was not inferred"
+    assert obj_depth.min() >= 0.0 and obj_depth.max() <= 1.0
+    np.testing.assert_allclose(obj_depth, np.asarray(jdepth), atol=1e-6, rtol=0)
+    sensor = np.random.default_rng(2).uniform(0, 1, (H, W)).astype(np.float32)
+    assert tp(rgb, "toilet", sensor)[3] is sensor, "sensor depth must pass through untouched"
+    assert tp(rgb, "toilet", None)[3] is None
+
+
+class _NoDepthCamera:
+    """An environment whose camera gives all-ones depth, as the robot's RGB
+    gripper camera does."""
+
+    def __init__(self, env):
+        self.env = env
+
+    def _ones(self, o):
+        return dict(o, depth=np.ones_like(o["depth"]))
+
+    def reset(self):
+        return self._ones(self.env.reset())
+
+    def step(self, action):
+        return self._ones(self.env.step(action))
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+
+def test_episode_passes_inferred_depth_only(stacks, depth_models, monkeypatch):
+    jmodels, tmodels = stacks
+    jz, tz = depth_models
+    jp = JFS.FullStackPerception(JCFG, **jmodels, monodepth=jz)
+    tp = FS.FullStackPerception(CFG, **tmodels, monodepth=tz, device="cpu")
+    env_kw = dict(width=W, height=H, max_steps=EPISODE_STEPS // 2)
+    seen, step = [], FS.itm.step
+
+    def spy(state, obs, cos, masks, valid, keys, object_depth=None, **kw):
+        seen.append((bool(valid.any()), object_depth))
+        return step(state, obs, cos, masks, valid, keys, object_depth, **kw)
+
+    monkeypatch.setattr(FS.itm, "step", spy)
+    for camera in (lambda e: e, _NoDepthCamera):
+        seen.clear()
+        jres, _ = JFS.run_full_stack_episode(
+            camera(JENV.FakeObjectNavEnv(JENV.open_room_plan(seed=1), JENV.EnvConfig(**env_kw))), JSPEC, JCFG,
+            perception=jp, seed=1)
+        tres, _ = FS.run_full_stack_episode(
+            camera(TENV.FakeObjectNavEnv(TENV.open_room_plan(seed=1), TENV.EnvConfig(**env_kw))), SPEC, CFG,
+            perception=tp, seed=1, device="cpu")
+        for name in ("steps", "success", "target_detected", "failure_cause", "collisions"):
+            assert getattr(tres, name) == getattr(jres, name), name
+        assert abs(tres.path_length - jres.path_length) <= SPL_ATOL
+        inferred = [d is not None for _, d in seen]
+        assert len(seen) == EPISODE_STEPS // 2
+        if camera is _NoDepthCamera:
+            assert inferred == [v for v, _ in seen] and any(inferred)
+            assert all(d.shape == (1, H, W) and not torch.all(d == 1.0) for _, d in seen if d is not None)
+        else:
+            assert not any(inferred)

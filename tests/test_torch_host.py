@@ -224,6 +224,8 @@ PORT_MODULES = [
     "vlfm_tpu_torch.runner.episode_driver", "vlfm_tpu_torch.runner.metrics",
     "vlfm_tpu_torch.runner.full_stack", "vlfm_tpu_torch.runner.sim_farm", "vlfm_tpu_torch.runner.packing",
     "vlfm_tpu_torch.runner.obsring", "vlfm_tpu_torch.parallel.engine",
+    "vlfm_tpu_torch.models.t5_vqa", "vlfm_tpu_torch.models.blip2_vqa", "vlfm_tpu_torch.models.zoedepth",
+    "vlfm_tpu_torch.models.monodepth",
 ]
 
 

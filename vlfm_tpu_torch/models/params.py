@@ -32,7 +32,8 @@ def init_random_(module: nn.Module, gen: torch.Generator, stds: Mapping[str, flo
         weight = mod._parameters.get("weight")
         if isinstance(mod, Norm):
             mod.weight.fill_(1.0)
-            mod.bias.zero_()
+            if mod._parameters.get("bias") is not None:
+                mod.bias.zero_()
         elif isinstance(mod, nn.Embedding):
             mod.weight.normal_(0.0, mod.embedding_dim**-0.5, generator=gen)
         elif weight is not None and weight.ndim >= 2:

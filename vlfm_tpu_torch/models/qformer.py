@@ -7,6 +7,10 @@ Counterpart of ``vlfm_tpu/models/qformer.py``. Two operating modes:
   feed-forward branch;
 - text branch: post-LN BERT over token embeddings (no cross-attention,
   shared self-attention weights, the text feed-forward branch).
+
+A Q-Former built with ``text_branch=False`` (BLIP-2's VQA bridge, which only
+runs the query branch) has no text feed-forward parameters, as the JAX tree
+of that model has none.
 """
 
 from __future__ import annotations
@@ -35,7 +39,8 @@ class QFormerConfig:
 
 
 class QFormerLayer(nn.Module):
-    def __init__(self, cfg: QFormerConfig, has_cross: bool, encoder_width: int, *, device=None):
+    def __init__(self, cfg: QFormerConfig, has_cross: bool, encoder_width: int, text_branch: bool = True, *,
+                 device=None):
         super().__init__()
         c = cfg
         self.has_cross = has_cross
@@ -44,7 +49,7 @@ class QFormerLayer(nn.Module):
         if has_cross:
             self.cross_attn = BertAttention(c.hidden, c.heads, encoder_width, device=device)
             self.cross_ln = LayerNormF32(c.hidden, c.ln_eps, device=device)
-        for branch in ("query", "text"):
+        for branch in ("query", "text") if text_branch else ("query",):
             self.add_module(f"ffn_{branch}_fc1", Dense(c.hidden, c.intermediate, device=device))
             self.add_module(f"ffn_{branch}_fc2", Dense(c.intermediate, c.hidden, device=device))
             self.add_module(f"ffn_{branch}_ln", LayerNormF32(c.hidden, c.ln_eps, device=device))
@@ -70,14 +75,14 @@ class QFormerLayer(nn.Module):
 
 
 class QFormer(nn.Module):
-    def __init__(self, cfg: QFormerConfig, encoder_width: int, *, device=None):
+    def __init__(self, cfg: QFormerConfig, encoder_width: int, text_branch: bool = True, *, device=None):
         super().__init__()
         self.cfg = cfg
         self.embed_ln = LayerNormF32(cfg.hidden, cfg.ln_eps, device=device)
         for i in range(cfg.layers):
             has_cross = i % cfg.cross_attention_freq == 0
             self.add_module(
-                f"layer{i}", QFormerLayer(cfg, has_cross, encoder_width, device=device)
+                f"layer{i}", QFormerLayer(cfg, has_cross, encoder_width, text_branch, device=device)
             )
 
     def forward(

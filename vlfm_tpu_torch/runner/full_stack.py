@@ -2,8 +2,10 @@
 
 Counterpart of ``vlfm_tpu/runner/full_stack.py``. Perception (BLIP2-ITM
 scores, OWL-ViT detection with the COCO route and its open-vocabulary
-retry, gated MobileSAM masks) feeds the batched policy step instead of the
-environment's oracle: the complete system of the reference, end to end.
+retry, gated MobileSAM masks, with ``cfg.use_vqa`` the BLIP-2 / flan-T5
+veto of each detection, and the monocular-depth fallback) feeds the batched
+policy step instead of the environment's oracle: the complete system of the
+reference, end to end.
 With converted checkpoints this is the deployment configuration; with
 random weights it runs every seam and measures the stack's throughput.
 
@@ -12,18 +14,18 @@ random weights it runs every seam and measures the stack's throughput.
 - ``FullStackPerception.make_fused_step``: the farm's dispatch over its lanes
   (unpack, lane resets, perception, keys, one batched ``step``) behind one
   host-to-device copy of a packed buffer and one (B, 4) read back.
+- ``FullStackPerception.__call__``: one frame, with the all-ones-depth
+  trigger of monocular depth (ZoeDepth) for the object map.
 - ``run_full_stack_episode``: one episode (B = 1) with model perception.
 
-The VQA veto (``use_vqa``) and the monocular-depth fallback (ZoeDepth) are
-not ported yet (ROADMAP Queue 1 item 6); asking for either raises. The
-ViT-det SAM encoder behind JAX's ``tiny_sam_config`` is not ported either:
-the port's SAM is MobileSAM.
+The ViT-det SAM encoder behind JAX's ``tiny_sam_config`` is not ported
+(ROADMAP Queue 1 item 6): the port's SAM is MobileSAM.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,13 +34,14 @@ from vlfm_tpu_torch.config import VLFMConfig
 from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
 from vlfm_tpu_torch.models.coco_detector import CocoDetector
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear_hw
-from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline
+from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline, VQAVeto
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.policy import itm
 from vlfm_tpu_torch.runner import packing
@@ -53,12 +56,19 @@ from vlfm_tpu_torch.runner.episode_driver import (
 )
 from vlfm_tpu_torch.utils.measurements import TraveledStairs
 
-NOT_PORTED = "is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1 item 6)"
-
 
 class FullStackPerception:
     """(B, H, W, 3) uint8 frames and a target -> (cosines, detection masks,
-    validity) through the real model architectures."""
+    validity) through the real model architectures.
+
+    With ``cfg.use_vqa`` the pipeline vetoes detections through
+    ``blip2_vqa`` (a ``BLIP2VQA``; tiny random weights if none is given),
+    or through a bare T5 ``vqa`` with an explicit ``image_prefix`` callable
+    ((N, H, W, 3) uint8 -> (N, P, d_model)). Questions are the stack's
+    tokenizer ids modulo T5's vocabulary, and ``yes_token_id`` is the
+    answer that keeps a detection. ``monodepth`` (``infer_depth(rgb, min,
+    max)``, e.g. ``models/zoedepth.ZoeDepth``) fills in depth for the
+    object map where the camera gives none (``__call__``)."""
 
     def __init__(
         self,
@@ -70,19 +80,24 @@ class FullStackPerception:
         det_threshold: float = 0.0,
         *,
         vqa=None,
-        blip2_vqa=None,
+        blip2_vqa: Optional[BLIP2VQA] = None,
+        image_prefix: Optional[Callable] = None,
+        yes_token_id: int = 42,
         device: torch.device | str = default_device(),
     ):
-        if cfg.use_vqa or vqa is not None or blip2_vqa is not None:
-            raise NotImplementedError(f"the VQA veto {NOT_PORTED}")
-        if monodepth is not None:
-            raise NotImplementedError(f"monocular depth (ZoeDepth) {NOT_PORTED}")
+        if not cfg.use_vqa and (vqa is not None or blip2_vqa is not None or image_prefix is not None):
+            raise ValueError("vqa=, blip2_vqa= and image_prefix= need cfg.use_vqa")
+        if vqa is not None and (blip2_vqa is not None or image_prefix is None):
+            raise ValueError("a bare vqa= takes image_prefix= and no blip2_vqa=")
+        if monodepth is not None and not callable(getattr(monodepth, "infer_depth", None)):
+            raise ValueError("monodepth= needs an infer_depth(rgb, min_depth, max_depth) method")
         self.cfg = cfg
         self.device = torch.device(device)
         self.itm = itm or BLIP2ITM.init_random(BLIP2ITMConfig.tiny(), seed=0, device=device)
         detector = detector or OwlViTDetector.init_random(OwlViTDetConfig.tiny(), seed=0, device=device)
         # MobileSAM (TinyViT encoder), the reference's vit_t (vlfm/vlm/sam.py:24-57)
         sam = sam or SAM.init_random(SamConfig.tiny_mobile_sam(), seed=0, device=device)
+        self.monodepth = monodepth
         self.tokenizer = WordPieceTokenizer(toy_vocab(), max_len=8)
         self.engine = PerceptionEngine(itm=self.itm, tokenizer=self.tokenizer, text_prompt=cfg.text_prompt)
 
@@ -96,9 +111,28 @@ class FullStackPerception:
 
         coco = CocoDetector(detector, encode_queries, conf_threshold=cfg.coco_threshold,
                             max_detections=cfg.max_detections_per_frame)
+        veto = self.vqa_bridge = None
+        if cfg.use_vqa:
+            if vqa is None:
+                bridge = self.vqa_bridge = blip2_vqa or BLIP2VQA.init_random(BLIP2VQAConfig.tiny(), seed=0,
+                                                                            device=device)
+                vqa = bridge.t5
+
+                def image_prefix(rgb):
+                    return bridge.image_prefix(bridge.preprocess(rgb))
+
+            def encode_question(text):
+                ids, mask = self.tokenizer.encode_batch([text])
+                return ids[0] % vqa.cfg.vocab_size, mask[0]
+
+            veto = VQAVeto(vqa=vqa, encode_text=encode_question, yes_token_id=yes_token_id,
+                           image_prefix=image_prefix, vqa_prompt=cfg.vqa_prompt,
+                           slot_capacity=cfg.vqa_slot_capacity)
         self.pipeline = DetectionPipeline(
             detector, sam, encode_queries,
             coco_detector=coco,
+            vqa_veto=veto,
+            use_vqa=cfg.use_vqa,
             coco_threshold=cfg.coco_threshold,
             non_coco_threshold=det_threshold,
             max_detections=cfg.max_detections_per_frame,
@@ -122,19 +156,38 @@ class FullStackPerception:
         cos, masks, valid = self._perceive(rgb, target)
         return cos[:, : self.cfg.value_channels], masks, valid
 
+    def monocular_depth(self, rgb_b, depth, valid: torch.Tensor) -> Optional[torch.Tensor]:
+        """The object map's depth for a (1, H, W, 3) uint8 frame (host numpy
+        or a tensor) on the device: (1, H, W)
+        inferred by ``monodepth``, normalised to the camera's range, when
+        ``depth`` is given and all ones, a monodepth model is set and a
+        detection is valid (one host read); else None, and the caller keeps
+        ``depth`` (base_objectnav_policy.py:314-318;
+        reality_policies.py:156-169)."""
+        if depth is None or self.monodepth is None or not np.all(np.asarray(depth) == 1.0):
+            return None
+        if not bool(valid.any()):
+            return None
+        cam = self.cfg.camera
+        return self.monodepth.infer_depth(torch.as_tensor(rgb_b).to(self.device), cam.min_depth, cam.max_depth)
+
     def __call__(self, rgb: np.ndarray, target: str, depth: Optional[np.ndarray] = None):
         """One (H, W, 3) frame -> numpy (cosines (C_all,), masks (K, H, W),
-        valid (K,), object depth). The object depth is ``depth`` itself: the
-        all-ones-depth trigger of monocular estimation needs ZoeDepth."""
+        valid (K,), object depth). The object depth is the inferred one
+        where ``monocular_depth`` infers it, else ``depth`` itself, the same
+        object."""
         rgb_b = torch.as_tensor(rgb).to(self.device)[None]
         cos, masks, valid = self._perceive(rgb_b, target)
-        return cos[0].cpu().numpy(), masks[0].cpu().numpy(), valid[0].cpu().numpy(), depth
+        inferred = self.monocular_depth(rgb_b, depth, valid)
+        object_depth = depth if inferred is None else inferred[0].cpu().numpy()
+        return cos[0].cpu().numpy(), masks[0].cpu().numpy(), valid[0].cpu().numpy(), object_depth
 
     def make_fused_step(self, pointnav, spec: GridSpec2D, cfg: VLFMConfig, target: str, version: str = "v2",
                         layout: Optional[packing.Layout] = None):
         """The farm's dispatch as one call: unpack, dequantise and
         upsample depth, reset lanes, ITM cosines from the cached text
-        features, the detection pipeline, camera poses, per-lane keys
+        features, the detection pipeline (with the VQA veto under
+        ``cfg.use_vqa``), camera poses, per-lane keys
         ``fold_in(PRNGKey(seed), step)`` computed on the device, and one
         batched ``step``.
 
@@ -199,7 +252,9 @@ def run_full_stack_episode(env, spec: GridSpec2D, cfg: VLFMConfig, pointnav="gre
     """``run_episode`` with model perception instead of the environment's
     oracle: per env step one perception call and one ``step`` (B = 1), keys
     ``fold_in(PRNGKey(seed), step)``, so results do not depend on
-    scheduling and equal the farm's. Returns (EpisodeResult, DriverStats)."""
+    scheduling and equal the farm's. ``step`` takes an ``object_depth``
+    only where ``monocular_depth`` inferred one. Returns (EpisodeResult,
+    DriverStats)."""
     perception = perception or FullStackPerception(cfg, device=device)
     o = env.reset()
     state = itm.create_state(spec, cfg, device=device)
@@ -212,10 +267,12 @@ def run_full_stack_episode(env, spec: GridSpec2D, cfg: VLFMConfig, pointnav="gre
     t0 = time.time()
     while not o["done"]:
         cos, masks, valid = perception.batch(o["rgb"][None], target)
+        obj_depth = perception.monocular_depth(o["rgb"][None], o["depth"], valid)
         obs = step_inputs([o], cfg, device)[0]  # depth and pose in one copy
         stairs.update(o.get("agent_z", 0.0))
         keys = threefry.fold_in(key, stats.env_steps)[None]  # step_keys' bits, with no copy
         action, info, state = itm.step(state, obs, cos.to(device), masks.to(device), valid.to(device), keys,
+                                       None if obj_depth is None else obj_depth.to(device),
                                        pointnav=pointnav, spec=spec, cfg=cfg)
         back = read_back(action, info)
         target_seen = target_seen or o["target_visible"]
