@@ -112,7 +112,8 @@ Phases (any failure raises, and the script exits non-zero):
      then run_episodes_farm (2 spawned sim workers over the shared-memory
      ring, one dispatch over all 8 lanes) on phase 19's 16 open_room_plan
      episodes, oracle-scored and equal to phase 19's run_episodes_recycled
-     field for field, and with the full stack's perception, once with f32
+     field for field, and with the full stack's perception (at most
+     FULL_FARM_STEPS steps an episode), once with f32
      full-size records and once with the JAX bench's compressed transport
      (u16 half-size depth, half-size RGB, brought back to the camera grid
      on the card); all finish (env-steps/s, bytes put, the driver's time
@@ -127,16 +128,39 @@ Phases (any failure raises, and the script exits non-zero):
      result against the dense one (first-token logits within
      VQA_LOGIT_ATOL, vetoes equal off near ties, which are counted), and
      each density timed (wall, device, idle, launches, host syncs); (c) the
-     full stack with cfg.use_vqa (veto capacity 8) on 8 lanes for 8 packed
-     fused dispatches (K1, K2, K3 against the SAM and veto passes), held bit
-     for bit to the unpacked signature; one dispatch with the veto timed
-     beside one without it; run_episodes_farm with the veto on 8
-     open_room_plan episodes;
+     full stack with cfg.use_vqa (veto capacity 8) on 8 lanes for VQA_STEPS
+     packed fused dispatches (K1, K2, K3 against the SAM and veto passes),
+     held bit for bit to the unpacked signature; one dispatch with the veto
+     timed beside one without it; run_episodes_farm with the veto on 8
+     open_room_plan episodes of VQA_FARM_STEPS steps;
  22. ZoeDepth: (a) tiny NYU and NK, card against CPU; (b) ZoeD_NK at full
      width (BEiT-L/16 at 384 px) on the 8 spin frames at 640x480: each lane
      equals its B=1 run within ZOE_LANE_ATOL, depth in [0, 1], timed at
      B=1 and B=8; (c) FullStackPerception with all-ones depth infers depth,
-     and with the sensor's depth returns the same object.
+     and with the sensor's depth returns the same object;
+ 23. PointNav behaviour cloning: (a) one batch of ``bc_loss_fn`` (B=2,
+     T=6, 48x64 depth) and its backward on the card against the CPU under
+     exact_f32 (loss, accuracy, every gradient); (b) fit_pointnav_to_greedy
+     at the JAX bench's setting (bench.py:932-936: 16 episodes, 224x224
+     depth through the u16 half-size seam, 150 Adam steps at batch 8):
+     rollout and training seconds, device ms per Adam step, the teacher
+     accuracy (above 0.85); (c) run_episodes_farm with the fitted network
+     producing every PointNav action at the bench's composition
+     (bench.py:938-952: 16 lanes, 2 workers, open_room_plan seeds
+     400-415, 120 steps, u16 half-size depth, oracle perception) beside the
+     greedy controller on the same episodes: success rate (above 0) and
+     env-steps/s;
+ 24. the Habitat-protocol loop at full width: habitat_eval.evaluate over
+     FakeHabitatEnv on 2 two_room_plan episodes at 640x480 of at most 60
+     steps, HabitatVLFMAgent (v2, phase 23's fitted PointNav) over
+     FullStackPerception with phase 20's models, logs and videos in a
+     temporary directory: K1, K2 and K3 launches per act, the logs'
+     analyze_logs summary against the results, one video frame per step
+     but the last; one act at B=1 timed (wall, device, idle, launches,
+     host syncs); then ``python -m vlfm_tpu_torch.run --backend synthetic
+     --episodes 2 --max-steps 60`` and ``python -m
+     vlfm_tpu_torch.runner.demo --episodes 1`` as subprocesses, each
+     exiting 0 with its JSON.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -149,8 +173,10 @@ import copy
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -158,6 +184,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from vlfm_tpu_torch.adapters.habitat import HabitatVLFMAgent
 from vlfm_tpu_torch.config import VLFMConfig
 from vlfm_tpu_torch.kernels.build import load_library
 from vlfm_tpu_torch.mapping import object_map as OBJ
@@ -196,10 +223,14 @@ from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
+from vlfm_tpu_torch.runner import imitation as IM
+from vlfm_tpu_torch.runner import metrics as RM
 from vlfm_tpu_torch.runner import packing
+from vlfm_tpu_torch.runner.analyze_logs import load_logs, summarize
 from vlfm_tpu_torch.runner.episode_driver import read_back, run_episode, run_episodes_recycled, step_inputs
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, open_room_plan, two_room_plan
 from vlfm_tpu_torch.runner.full_stack import FullStackPerception
+from vlfm_tpu_torch.runner.habitat_eval import FakeHabitatEnv, evaluate
 from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
 from vlfm_tpu_torch.utils.geometry import rho_theta, xyz_yaw_to_tf_matrix
 from vlfm_tpu_torch.utils.img import resize_area
@@ -354,6 +385,7 @@ OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
 EPISODE_STEPS = 40  # phase 19: the 12-turn spin, then 28 steps
 PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN picks its algorithms per batch)
 FARM_EPISODES = 16  # phases 19-20: open_room_plan episodes on BATCH_LANES lanes
+FULL_FARM_STEPS = 20  # phase 20: the full stack's farms, steps per episode (the oracle farm's are EPISODE_STEPS)
 FARM_WORKERS = 2  # phase 20: sim worker processes
 SAM_CAPACITY = 2  # phase 20: gated SAM's frames per pass
 VQA_CAPACITY = 8  # phases 21-22: veto slots per pass, 4 answer tokens (bench.py:565-575)
@@ -366,11 +398,30 @@ TINY_VQA_ATOL = 1e-3  # phase 21: tiny f32 prefix and first-token logits, card a
 # and may answer otherwise, and is counted.
 VQA_LOGIT_ATOL = 0.05
 VQA_TIE = 2 * VQA_LOGIT_ATOL
-VQA_STEPS = 8  # phase 21: fused dispatches with the veto (in the spin)
+VQA_STEPS = 4  # phase 21: fused dispatches with the veto (in the spin)
 VQA_FARM_EPISODES = 8  # phase 21: the veto's farm, open_room_plan episodes
-VQA_FARM_STEPS = 8
+VQA_FARM_STEPS = 4
 TINY_ZOE_ATOL = 1e-4  # phase 22: tiny ZoeDepth's metric depth (m), card against CPU
 ZOE_LANE_ATOL = 1e-4  # phase 22: normalised depth, a lane at B=8 against B=1 (cuDNN picks algorithms per batch)
+# phase 23: behaviour cloning. (a) one batch of B=2, T=6 at 48x64, card against CPU under exact_f32: the loss
+# within BC_LOSS_RTOL, each gradient within BC_GRAD_RTOL and BC_GRAD_ATOL times its tensor's largest entry (the
+# CPU tests' tolerances against JAX: f32 sums in another order). (b) the JAX bench's fit (bench.py:932-936) and
+# (c) its trained farm (bench.py:938-952): 16 lanes, 2 workers, seeds 400-415, 120 steps, u16 half-size depth.
+BC_TINY_SHAPE = (48, 64)
+BC_LOSS_RTOL = 1e-5
+BC_GRAD_RTOL, BC_GRAD_ATOL = 1e-4, 1e-5
+BC_FIT = dict(episodes=16, train_steps=150, batch=8, max_steps=40, transport="u16_half", seed=0)
+BC_ENV_STEPS = 60
+BC_ACCURACY = 0.85  # tests/test_imitation.py:69
+BC_TIMED_STEPS = 5  # Adam steps under the profiler for the device ms per step
+TRAINED_LANES = 16
+TRAINED_SEEDS = list(range(400, 416))
+TRAINED_ENV_STEPS = 120
+# phase 24: the Habitat-protocol loop over FakeHabitatEnv at 640x480
+HABITAT_EPISODES = 2
+HABITAT_STEPS = 60
+HABITAT_TARGET = "toilet"  # HM3D goal 3, FakeHabitatEnv's object category
+CLI_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -1782,11 +1833,13 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
                              ("u16 half-size depth, half-size RGB", dict(depth_u16=True, depth_half=True,
                                                                          rgb_half=True))):
         counter.frames.clear()
-        full, fstats = run_episodes_farm(seeds, perception=perception, target=COCO_TARGET, **farm_kw, **transport)
+        full, fstats = run_episodes_farm(seeds, perception=perception, target=COCO_TARGET,
+                                         **{**farm_kw, "max_steps": FULL_FARM_STEPS}, **transport)
         check(set(full) == set(seeds) and all(r.steps > 0 for r in full.values()),
               f"the full-stack farm ({label}) lost an episode")
         res = [full[s] for s in seeds]
-        log(f"[farm] full-stack farm, {label} records: the same {FARM_EPISODES} episodes with BLIP2-ITM, OWL-ViT "
+        log(f"[farm] full-stack farm, {label} records: the same {FARM_EPISODES} episodes (at most "
+            f"{FULL_FARM_STEPS} steps) with BLIP2-ITM, OWL-ViT "
             f"and gated SAM per dispatch: all finished, successes {sum(r.success for r in res)}, steps "
             f"{[r.steps for r in res]}, detected {sum(r.target_detected for r in res)}; frames with a detection "
             f"{sum(int(f) for f in counter.frames)}; {farm_summary(fstats)}; on {smi}")
@@ -2142,6 +2195,210 @@ def phase_zoedepth(engine: PerceptionEngine, det, sam, rgb: torch.Tensor, smi: s
         f"object comes back")
 
 
+# --- phase 23 ----------------------------------------------------------------
+def phase_bc_tiny() -> None:
+    """One BC batch (B=2, T=6, 48x64 depth) through ``bc_loss_fn`` and its
+    backward on the CPU and on the card, from the same weights."""
+    data = IM.collect_pointnav_rollouts(2, seed=3, env_cfg=EnvConfig(width=64, height=48, max_steps=30),
+                                        depth_shape=BC_TINY_SHAPE, max_steps=6, device="cpu")
+    cpu = PointNavPolicy.init_random(0, depth_shape=BC_TINY_SHAPE, device="cpu")
+    gpu = PointNavPolicy(copy.deepcopy(cpu.module).to(DEV))
+    out = []
+    for policy, dev in ((cpu, torch.device("cpu")), (gpu, DEV)):
+        batch = [torch.from_numpy(data[k]).to(dev) for k in ("depth", "goal", "action", "valid")]
+        with exact_f32(dev):
+            loss, acc = IM.bc_loss_fn(policy, *batch)
+            loss.backward()
+        out.append((float(loss.detach()), float(acc),
+                    {n: p.grad.cpu() for n, p in policy.module.named_parameters()}))
+    (lc, ac, gc), (lg, ag, gg) = out
+    worst, name_worst = 0.0, ""
+    for name, want in gc.items():
+        scale = float(want.abs().max())
+        err = float((gg[name] - want).abs().max()) / max(scale, 1e-30)
+        if err > worst:
+            worst, name_worst = err, name
+        check(torch.allclose(gg[name], want, rtol=BC_GRAD_RTOL, atol=BC_GRAD_ATOL * scale),
+              f"BC gradient {name}: card differs from CPU")
+    log(f"[bc-tiny] bc_loss_fn, B=2 T=6 at {BC_TINY_SHAPE[1]}x{BC_TINY_SHAPE[0]}, valid {int(data['valid'].sum())} of "
+        f"12: loss card {lg:.7f} CPU {lc:.7f} (rel err {abs(lg - lc) / abs(lc):.2e}, tol {BC_LOSS_RTOL}), accuracy "
+        f"{ag} and {ac}; {len(gc)} gradients, worst max_abs_err / largest entry {worst:.2e} ({name_worst}; tol "
+        f"rtol {BC_GRAD_RTOL} + {BC_GRAD_ATOL} of the largest)")
+    check(abs(lg - lc) <= BC_LOSS_RTOL * abs(lc) and ag == ac, "BC loss or accuracy: card differs from CPU")
+
+
+def phase_bc(spec, smi: str):
+    """Fit the full-width PointNav to the greedy controller on the card,
+    then run the JAX bench's trained farm with it beside the greedy one.
+    Returns the fitted policy."""
+    cfg = VLFMConfig()
+    shape = tuple(cfg.depth_image_shape)
+    env_cfg = EnvConfig(max_steps=BC_ENV_STEPS)
+    rollout_kw = dict(seed=BC_FIT["seed"], env_cfg=env_cfg, depth_shape=shape, max_steps=BC_FIT["max_steps"],
+                      transport=BC_FIT["transport"], device=DEV)
+    t0 = time.perf_counter()
+    data = IM.collect_pointnav_rollouts(BC_FIT["episodes"], **rollout_kw)
+    rollout_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    policy, bc = IM.fit_pointnav_to_greedy(depth_shape=shape, env_cfg=env_cfg, device=DEV, **BC_FIT)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    # Device time per Adam step: a copy of the fitted network takes
+    # BC_TIMED_STEPS more steps on the same rollouts under the profiler.
+    probe = PointNavPolicy(copy.deepcopy(policy.module))
+    IM.train_pointnav_bc(probe, data, steps=1, batch=BC_FIT["batch"])  # the optimiser's first-call allocations
+    kernels, copies, busy, wall = launch_profile(
+        lambda: IM.train_pointnav_bc(probe, data, steps=BC_TIMED_STEPS, batch=BC_FIT["batch"]))
+    frames = int(data["valid"].sum())
+    log(f"[bc] fit_pointnav_to_greedy at the JAX bench's setting: {BC_FIT['episodes']} open_room_plan episodes "
+        f"(EnvConfig max_steps {BC_ENV_STEPS}, at most {BC_FIT['max_steps']} steps, {frames} frames, u16 half-size "
+        f"depth seam on the card), {BC_FIT['train_steps']} Adam steps at batch {BC_FIT['batch']} on {shape[0]}x"
+        f"{shape[1]} depth: rollouts {rollout_s:.2f} s (collected alone), the fit {fit_s:.2f} s with its rollouts "
+        f"(training {fit_s - rollout_s:.2f} s); an Adam step {busy / BC_TIMED_STEPS:.2f} ms of device time, "
+        f"{wall / BC_TIMED_STEPS:.2f} ms wall, idle share {1 - busy / wall:.3f}, {kernels // BC_TIMED_STEPS} kernel "
+        f"launches + {copies // BC_TIMED_STEPS} copies/sets (profiler, {BC_TIMED_STEPS} steps); teacher accuracy "
+        f"{bc['accuracy']:.4f}, loss {bc['loss']:.4f} (the last minibatch); on {smi}")
+    check(bc["accuracy"] > BC_ACCURACY, f"BC accuracy {bc['accuracy']:.3f} is not above {BC_ACCURACY}")
+
+    farm_kw = dict(lanes=TRAINED_LANES, spec=spec, cfg=cfg, plan_name="open_room_plan",
+                   env_cfg=EnvConfig(max_steps=TRAINED_ENV_STEPS), workers=FARM_WORKERS, depth_u16=True,
+                   depth_half=True, device=DEV)
+    rows = {}
+    for label, pointnav in (("the fitted PointNav", policy), ("the greedy controller", "greedy")):
+        res, stats = run_episodes_farm(TRAINED_SEEDS, pointnav=pointnav, **farm_kw)
+        check(set(res) == set(TRAINED_SEEDS), f"the farm with {label} lost an episode")
+        rate = sum(r.success for r in res.values()) / len(res)
+        rows[label] = rate
+        log(f"[bc-farm] run_episodes_farm with {label} producing every PointNav action: {len(res)} open_room_plan "
+            f"episodes (seeds {TRAINED_SEEDS[0]}-{TRAINED_SEEDS[-1]}, at most {TRAINED_ENV_STEPS} steps) on "
+            f"{TRAINED_LANES} lanes, {FARM_WORKERS} workers, u16 half-size depth, oracle perception: success rate "
+            f"{rate:.4f}, steps {[res[s].steps for s in TRAINED_SEEDS]}; {farm_summary(stats)}; on {smi}")
+    check(rows["the fitted PointNav"] > 0, "no episode succeeded through the fitted PointNav")
+    return policy
+
+
+# --- phase 24 ----------------------------------------------------------------
+class CountingAgent:
+    """A ``HabitatVLFMAgent`` whose every ``act`` records its wall time and
+    the K1, K2 and K3 launches it made (the counts' difference across it)."""
+
+    def __init__(self, agent):
+        self.agent, self.acts = agent, []
+
+    def act(self, obs):
+        before = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        t0 = time.perf_counter()
+        action = self.agent.act(obs)  # ends in a read of the action
+        ms = (time.perf_counter() - t0) * 1e3
+        after = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        self.acts.append((ms, *(a - b for a, b in zip(after, before))))
+        self.last_obs = obs
+        return action
+
+    def __getattr__(self, name):
+        return getattr(self.agent, name)
+
+
+def cli_json(args: list) -> dict:
+    """Run ``python -m ...`` from the checkout's root; it must exit 0 and
+    end its output with a JSON object."""
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(out.returncode == 0, f"python -m {' '.join(args)} exited {out.returncode}: {out.stderr[-2000:]}")
+    text = out.stdout
+    start = text.index("\n{") + 1 if not text.startswith("{") else 0
+    lines = text[:start].strip().splitlines()
+    log(f"[cli] python -m {' '.join(args)}: exit 0 in {time.perf_counter() - t0:.2f} s; "
+        f"{lines[-1] if lines else ''}")
+    return json.loads(text[start:])
+
+
+def phase_habitat_eval(engine: PerceptionEngine, det, sam, pointnav, smi: str) -> dict:
+    """``habitat_eval.evaluate`` over ``FakeHabitatEnv`` with the full stack
+    at full width, one lane (B=1) per act, logs and videos; then the two
+    command-line entry points."""
+    import cv2
+
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY)
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    env_cfg = EnvConfig(max_steps=HABITAT_STEPS)
+    perception = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam,
+                                     det_threshold=cfg.non_coco_threshold, device=DEV)
+    counter = perception.pipeline = CountingPipeline(perception.pipeline)
+    agent = CountingAgent(HabitatVLFMAgent(cfg, spec, pointnav, perception, version="v2", device=DEV))
+    perception.engine.text_features(HABITAT_TARGET)  # cached before the counts
+    perception.pipeline._queries(HABITAT_TARGET)
+    perception.pipeline.coco_detector._coco_queries()
+
+    def factory(i):
+        return FakeHabitatEnv(FakeObjectNavEnv(two_room_plan(seed=i), env_cfg), episode_id=str(i),
+                              scene_id="two_room", object_category=HABITAT_TARGET)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        log_dir, video_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "videos")
+        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        t0 = time.perf_counter()
+        results = evaluate(factory, agent, HABITAT_EPISODES, log_dir=log_dir, video_dir=video_dir, print_fn=log)
+        wall = time.perf_counter() - t0
+        launches = dict(layer_norm=layer_norm.launches, attention=attention.launches,
+                        mbconv_chain=mbconv_chain.launches)
+        logged = load_logs(log_dir)
+        videos = sorted(os.listdir(video_dir))
+        frames = []
+        for name in videos:
+            cap = cv2.VideoCapture(os.path.join(video_dir, name))
+            frames.append(int(cap.get(cv2.CAP_PROP_FRAME_COUNT)))
+            cap.release()
+    check(len(results) == HABITAT_EPISODES and all(r.steps > 0 for r in results), "evaluate lost an episode")
+    steps = [r.steps for r in results]
+    acts = np.array(agent.acts)
+    check(len(acts) == sum(steps), "one act per env step")
+    passes = [-(-int(f) // SAM_CAPACITY) for f in counter.frames]
+    want_k1, want_k3 = LAUNCHES_IMAGE + 2 * LAUNCHES_DETECT, ATTN_LAUNCHES_IMAGE
+    want_k2 = [chain_launches(sam.cfg.tinyvit) * p for p in passes]
+    check(acts[:, 1].tolist() == [want_k1] * len(acts) and acts[:, 3].tolist() == [want_k3] * len(acts)
+          and acts[:, 2].tolist() == want_k2, "K1, K2 or K3 launches per act")
+    check(launches == dict(layer_norm=int(acts[:, 1].sum()), mbconv_chain=int(acts[:, 2].sum()),
+                           attention=int(acts[:, 3].sum())), "launch counts over the run")
+    # The logs' summary equals the same summary of the returned results,
+    # and its aggregates metrics.aggregate's.
+    want = summarize([{**r.to_dict(), "target_object": HABITAT_TARGET} for r in results])
+    got = summarize(logged)
+    agg = RM.aggregate(results)
+    check(got == want and all(got[k] == agg[k] for k in ("episodes", "success_rate", "spl", "soft_spl",
+                                                         "failure_causes")),
+          f"analyze_logs' summary {got} differs from the results' {want} / {agg}")
+    # One frame per step, but the last: the one-step-delay realignment drops it.
+    check(frames == [n - 1 for n in steps], f"video frames {frames} for episodes of {steps} steps")
+    per_act = float(np.median(acts[1:, 0]))
+    log(f"[habitat] evaluate over FakeHabitatEnv: {HABITAT_EPISODES} two_room_plan episodes at "
+        f"{env_cfg.width}x{env_cfg.height} (at most {HABITAT_STEPS} steps) through HabitatVLFMAgent (v2, the fitted "
+        f"PointNav; FullStackPerception: BLIP2-ITM, OWL-ViT with the COCO route, MobileSAM gated at {SAM_CAPACITY}) "
+        f"with logs and videos: {wall:.2f} s incl. first calls; steps {steps}, successes "
+        f"{sum(r.success for r in results)}, causes {[r.failure_cause for r in results]}; per act K1 {want_k1}, "
+        f"K3 {want_k3}, K2 {sorted(set(want_k2))} (SAM passes {sum(passes)} of {len(acts)} acts); K1 "
+        f"{launches['layer_norm']}, K2 {launches['mbconv_chain']}, K3 {launches['attention']} over the run; "
+        f"analyze_logs' summary equals the results'; videos {frames} frames; an act {per_act:.2f} ms wall (median "
+        f"of acts 2-{len(acts)}, the env's step and the maps' renders outside it)")
+    # One act at B=1 under the profiler, and its host syncs, on the last observation.
+    obs = agent.last_obs
+    kernels, copies, busy, pwall = launch_profile(lambda: agent.agent.act(obs))
+    ms = wall_ms(lambda: agent.agent.act(obs), reps=5, warmup=1)
+    syncs = host_syncs(lambda: agent.agent.act(obs))
+    log(f"[habitat-time] B=1 HabitatVLFMAgent.act: {ms:.2f} ms wall (median of 5), {1e3 / ms:.1f} env-steps/s; under "
+        f"the profiler {busy:.2f} ms of device time, idle share {1 - busy / pwall:.3f}; {kernels} kernel launches + "
+        f"{copies} copies/sets, {syncs} host syncs; on {smi}")
+
+    run_out = cli_json(["vlfm_tpu_torch.run", "--backend", "synthetic", "--episodes", "2", "--max-steps", "60"])
+    check(run_out["episodes"] == 2 and run_out["avg_steps"] > 0, f"run.py's aggregate {run_out}")
+    demo_out = cli_json(["vlfm_tpu_torch.runner.demo", "--episodes", "1"])
+    check(demo_out["episodes"] == 1 and demo_out["avg_steps"] > 0, f"the demo's aggregate {demo_out}")
+    log(f"[cli] run.py (synthetic, 2 episodes of at most 60 steps): {json.dumps(run_out)}; the demo (1 episode): "
+        f"{json.dumps(demo_out)}; on {smi}")
+    return launches
+
+
 def farm_summary(stats) -> str:
     return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
             f"{stats.dispatches} dispatches, "
@@ -2175,12 +2432,20 @@ def kernel_record(name: str, replaces: str, launches_by_path: dict, timed: dict)
 
 
 def main() -> None:
+    marks = [("start", time.perf_counter())]
+
+    def lap(name: str) -> None:
+        marks.append((name, time.perf_counter()))
+
     smi = phase_device()
     phase_build()
+    lap("0-1 device, build")
     ln = phase_layer_norm()
     k3 = phase_attention()
+    lap("2-3 K1, K3")
     phase_tiny_model()
     phase_tiny_obstacle_map()
+    lap("4-5 tiny ITM, tiny map")
 
     cfg, spec, engine, views = build_main_path()
     n_params = sum(p.numel() for p in engine.itm.module.parameters())
@@ -2189,6 +2454,7 @@ def main() -> None:
     main_run = phase_main_path(views, engine, spec, cfg)
     phase_value_map_check(views, spec, cfg)
     phase_timing(views, engine, spec, cfg, smi)
+    lap("6-8 ITM spin")
 
     k2 = phase_mbconv_chain()
     phase_tiny_pipeline()
@@ -2198,6 +2464,7 @@ def main() -> None:
     log(f"[detect] OWL-ViT base-32 {n_det / 1e6:.1f} M + MobileSAM {n_sam / 1e6:.2f} M parameters, bf16 serving")
     det_run = phase_detection_path(det_cfg, det, sam, rgb)
     phase_detection_timing(det_cfg, det, sam, rgb, smi)
+    lap("9-12 detection")
 
     k4 = phase_deform_gather()
     phase_tiny_gdino_pipeline()
@@ -2208,11 +2475,16 @@ def main() -> None:
     gdino_run = phase_gdino_path(det_cfg, adapter, det, sam, rgb)
     phase_gdino_timing(det_cfg, adapter, sam, rgb, smi)
     del gd, adapter
+    lap("13-16 GroundingDINO")
 
     batched_run = phase_batched_spin(engine, spec, cfg, smi)
+    lap("17 batched spin")
     objmap_run = phase_object_map(det_cfg, det, sam, smi)
+    lap("18 object map")
     episodes_run, recycled = phase_batched_episodes(engine, spec, cfg, smi)
+    lap("19 batched episodes")
     full_stack_run = phase_full_stack(engine, det, sam, spec, recycled, smi)
+    lap("20 full stack, farm")
 
     phase_tiny_vqa()
     bridge = build_vqa_bridge()
@@ -2224,9 +2496,18 @@ def main() -> None:
     veto_run = phase_vqa_veto(bridge, rgb, smi)
     vqa_stack_run = phase_vqa_full_stack(engine, det, sam, bridge, spec, smi)
     del bridge
+    lap("21 VQA veto")
     phase_tiny_zoedepth()
     phase_zoedepth(engine, det, sam, rgb, smi)
+    lap("22 ZoeDepth")
+    phase_bc_tiny()
+    fitted = phase_bc(spec, smi)
+    lap("23 behaviour cloning")
+    habitat_run = phase_habitat_eval(engine, det, sam, fitted, smi)
+    lap("24 Habitat-protocol loop, CLIs")
     del engine, det, sam
+    log("[phase-time] " + "; ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t) in zip(marks, marks[1:]))
+        + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
 
     check(main_run["layer_norm"] > 0, "the ITM path launched no layer_norm kernel")
     check(main_run["attention"] > 0, "the ITM path launched no attention kernel")
@@ -2242,6 +2523,8 @@ def main() -> None:
     check(veto_run["layer_norm"] > 0 and veto_run["attention"] > 0, "the veto launched no K1 or K3")
     check(all(vqa_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the full stack with the veto launched no K1, K2 or K3")
+    check(all(habitat_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the Habitat-protocol loop launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
@@ -2249,17 +2532,20 @@ def main() -> None:
                            "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
                            "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
                            "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
-                           "vqa_full_stack_step": vqa_stack_run["layer_norm"]}, ln),
+                           "vqa_full_stack_step": vqa_stack_run["layer_norm"],
+                           "habitat_eval": habitat_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],
                            "full_stack_step": full_stack_run["mbconv_chain"],
-                           "vqa_full_stack_step": vqa_stack_run["mbconv_chain"]}, k2),
+                           "vqa_full_stack_step": vqa_stack_run["mbconv_chain"],
+                           "habitat_eval": habitat_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
                            "decision_step": episodes_run["attention"],
                            "full_stack_step": full_stack_run["attention"], "vqa_veto": veto_run["attention"],
-                           "vqa_full_stack_step": vqa_stack_run["attention"]}, k3),
+                           "vqa_full_stack_step": vqa_stack_run["attention"],
+                           "habitat_eval": habitat_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

@@ -751,3 +751,30 @@ def test_vqa_fused_step_card_matches_cpu(dev):
         assert torch.equal(outs[dev][:, :2], outs["cpu"][:, :2])
         torch.testing.assert_close(outs[dev][:, 2:], outs["cpu"][:, 2:], atol=1e-5, rtol=0)
     assert torch.equal(states[dev].objmap.cursor.cpu(), states["cpu"].objmap.cursor)
+
+
+def test_bc_loss_backward_card_matches_cpu(dev):
+    """One behaviour-cloning batch (B=2, T=6, 48x64 depth) through
+    ``bc_loss_fn`` and its backward on the card, against the CPU from the
+    same weights, under ``exact_f32`` as training runs it: the loss to
+    1e-5 relative, each gradient to 1e-4 relative plus 1e-5 of its
+    tensor's largest entry."""
+    from vlfm_tpu_torch.models.precision import exact_f32
+    from vlfm_tpu_torch.runner import imitation as IM
+
+    data = IM.collect_pointnav_rollouts(2, seed=3, env_cfg=ENV.EnvConfig(width=64, height=48, max_steps=30),
+                                        depth_shape=(48, 64), max_steps=6, device="cpu")
+    cpu = PN.PointNavPolicy.init_random(0, depth_shape=(48, 64), device="cpu")
+    gpu = PN.PointNavPolicy(copy.deepcopy(cpu.module).to(dev))
+    out = []
+    for policy, d in ((cpu, torch.device("cpu")), (gpu, dev)):
+        batch = [torch.from_numpy(data[k]).to(d) for k in ("depth", "goal", "action", "valid")]
+        with exact_f32(d):
+            loss, acc = IM.bc_loss_fn(policy, *batch)
+            loss.backward()
+        out.append((float(loss.detach()), float(acc), {n: p.grad.cpu() for n, p in policy.module.named_parameters()}))
+    (lc, ac, gc), (lg, ag, gg) = out
+    assert abs(lg - lc) <= 1e-5 * abs(lc) and ag == ac
+    for name, want in gc.items():
+        scale = float(want.abs().max())
+        torch.testing.assert_close(gg[name], want, rtol=1e-4, atol=1e-5 * scale, msg=name)

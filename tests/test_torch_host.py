@@ -13,6 +13,7 @@ and failure causes over a grid of inputs, and the same stairs measure.
 
 import dataclasses
 import itertools
+import json
 import os
 import subprocess
 import sys
@@ -216,33 +217,29 @@ def test_target_seen_and_false_positive_match_jax(target):
         assert M.was_false_positive(goal, target, 0.3) == JM.was_false_positive(goal, target, 0.3)
 
 
-PORT_MODULES = [
-    "vlfm_tpu_torch.models.coco_classes", "vlfm_tpu_torch.models.coco_detector",
-    "vlfm_tpu_torch.models.owl_vit", "vlfm_tpu_torch.models.params", "vlfm_tpu_torch.models.sam",
-    "vlfm_tpu_torch.models.tinyvit", "vlfm_tpu_torch.ops.conv_fused",
-    "vlfm_tpu_torch.parallel.detection_pipeline", "vlfm_tpu_torch.models.pointnav",
-    "vlfm_tpu_torch.runner.episode_driver", "vlfm_tpu_torch.runner.metrics",
-    "vlfm_tpu_torch.runner.full_stack", "vlfm_tpu_torch.runner.sim_farm", "vlfm_tpu_torch.runner.packing",
-    "vlfm_tpu_torch.runner.obsring", "vlfm_tpu_torch.parallel.engine",
-    "vlfm_tpu_torch.models.t5_vqa", "vlfm_tpu_torch.models.blip2_vqa", "vlfm_tpu_torch.models.zoedepth",
-    "vlfm_tpu_torch.models.monodepth",
-]
-
-
 def test_chip_smoke_and_profile_script_import_nothing_of_jax():
+    """Every module of the package (a walk, so later modules are covered
+    too), ``chip_smoke.py`` and the profile script load neither jax nor
+    anything of vlfm_tpu."""
     code = (
-        "import importlib, sys\n"
-        f"for m in {PORT_MODULES!r}:\n"
+        "import importlib, pkgutil, sys\n"
+        "import vlfm_tpu_torch\n"
+        "mods = sorted(m.name for m in pkgutil.walk_packages(vlfm_tpu_torch.__path__, 'vlfm_tpu_torch.'))\n"
+        "for m in mods:\n"
         "    importlib.import_module(m)\n"
+        "for m in ('vlfm_tpu_torch.run', 'vlfm_tpu_torch.runner.imitation', 'vlfm_tpu_torch.adapters.habitat'):\n"
+        "    assert m in mods, m\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_step\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'vlfm_tpu'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vlfm_tpu'))\n"
         "assert not bad, bad\n"
+        "print(len(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                          timeout=120)
     assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) > 60
 
 
 # Runs in a spawned process, as the farm starts its workers: one episode
@@ -291,3 +288,170 @@ def test_spawned_farm_worker_imports_neither_jax_nor_torch():
     finally:
         obs.close()
         act.close()
+
+
+# --- the evaluation path's host copies -----------------------------------------
+from vlfm_tpu.policy import action_replay as JAR  # noqa: E402
+from vlfm_tpu.policy import oracle_fbe as JFBE  # noqa: E402
+from vlfm_tpu.runner import analyze_logs as JAN  # noqa: E402
+from vlfm_tpu.runner import log_saver as JLOG  # noqa: E402
+from vlfm_tpu.utils import video as JVID  # noqa: E402
+from vlfm_tpu.utils import visualization as JVIS  # noqa: E402
+from vlfm_tpu_torch.policy import action_replay as AR  # noqa: E402
+from vlfm_tpu_torch.policy import oracle_fbe as FBE  # noqa: E402
+from vlfm_tpu_torch.runner import analyze_logs as AN  # noqa: E402
+from vlfm_tpu_torch.runner import log_saver as LOG  # noqa: E402
+from vlfm_tpu_torch.utils import video as VID  # noqa: E402
+from vlfm_tpu_torch.utils import visualization as VIS  # noqa: E402
+
+
+def _files(d):
+    return {name: open(os.path.join(d, name), "rb").read() for name in sorted(os.listdir(d))}
+
+
+def _ledger(mod, d):
+    """Claims, logs and the stale-claim rule through one package, into d."""
+    scene = "data/scene_datasets/hm3d/val/abc/abc.basis.glb"
+    out = [mod.claim_episode("3", scene, d), mod.claim_episode("3", scene, d), mod.is_evaluated("3", scene, d)]
+    mod.log_episode("3", scene, {"success": True, "spl": 0.5, "target_object": "bed"}, d)
+    out += [mod.is_evaluated("3", scene, d), mod.claim_episode("3", scene, d)]
+    out.append(mod.claim_episode(7, "two_room", d))
+    stale = os.path.join(d, "7_two_room.json")
+    old = os.stat(stale).st_mtime - mod.STALE_CLAIM_SECONDS - 5
+    os.utime(stale, (old, old))
+    out += [mod.is_evaluated(7, "two_room", d), os.path.exists(stale), mod.claim_episode(7, "two_room", d)]
+    mod.log_episode(9, "two_room", {"success": False, "failure_cause": "timeout", "spl": 0.0}, d)
+    return out
+
+
+def test_log_saver_matches_jax(tmp_path, monkeypatch):
+    got, want = _ledger(LOG, str(tmp_path / "port")), _ledger(JLOG, str(tmp_path / "jax"))
+    assert got == want == [True, False, True, True, False, True, False, False, True]
+    assert _files(tmp_path / "port") == _files(tmp_path / "jax")
+    monkeypatch.setenv("ZSOS_LOG_DIR", str(tmp_path / "env"))
+    assert LOG.claim_episode("1", "s") and not JLOG.claim_episode("1", "s")
+
+
+def test_analyze_logs_matches_jax(tmp_path, monkeypatch, capsys):
+    d = str(tmp_path)
+    rows = [(True, "toilet", None), (False, "toilet", "false_positive"), (False, "bed", "timeout"),
+            (False, "bed", "false_positive"), (True, "chair", None)]
+    for i, (success, target, cause) in enumerate(rows):
+        LOG.log_episode(i, "scene", {"success": success, "spl": 0.3 * i, "soft_spl": 0.1 * i,
+                                     "target_object": target, "failure_cause": cause}, d)
+    LOG.claim_episode(99, "scene", d)  # an empty claim is skipped
+    got, want = AN.load_logs(d), JAN.load_logs(d)
+    assert got == want and len(got) == 5
+    assert AN.summarize(got) == JAN.summarize(want)
+    assert AN.summarize([]) == JAN.summarize([]) == {"episodes": 0}
+    outs = []
+    for mod in (AN, JAN):
+        monkeypatch.setattr(sys, "argv", ["analyze_logs", d])
+        mod.main()
+        outs.append(capsys.readouterr().out)
+    assert outs[0] == outs[1]
+
+
+def test_action_replay_matches_jax(tmp_path):
+    actions = [2, 2, 1, 1, 3, 1, 0]
+    paths = []
+    for mod, sub in ((AR, "port"), (JAR, "jax")):
+        rec = mod.ActionRecorder(str(tmp_path / sub))
+        for a in actions:
+            rec.record(np.int64(a))
+        paths.append(rec.flush("ep5"))
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    assert AR.repeat_elements(actions, 2) == JAR.repeat_elements(actions, 2)
+    for tf, sf in ((1, 1), (2, 1), (1, 3)):
+        port, ref = AR.ActionReplayPolicy(paths[0], tf, sf), JAR.ActionReplayPolicy(paths[1], tf, sf)
+        assert port.actions == ref.actions
+        assert [port.act() for _ in range(len(port.actions) + 2)] == [ref.act() for _ in range(len(ref.actions) + 2)]
+
+
+def _seeded_maps(seed=0):
+    rng = np.random.default_rng(seed)
+    values = rng.uniform(0, 1, (96, 96)).astype(np.float32)
+    values[rng.uniform(size=values.shape) < 0.3] = 0.0
+    obstacles = rng.uniform(size=(96, 96)) < 0.1
+    navigable = rng.uniform(size=(96, 96)) > 0.2
+    explored = rng.uniform(size=(96, 96)) < 0.5
+    frontiers = rng.integers(0, 96, (5, 2))
+    positions = [np.array([0.1 * i, -0.05 * i]) for i in range(8)]
+    return values, obstacles, navigable, explored, frontiers, positions
+
+
+def test_visualization_matches_jax():
+    from vlfm_tpu.mapping.grid import GridSpec2D as JGrid
+
+    spec, jspec = GridSpec2D(96, 20, 16), JGrid(96, 20, 16)
+    values, obstacles, navigable, explored, frontiers, positions = _seeded_maps()
+    traj, jtraj = VIS.TrajectoryVisualizer(spec), JVIS.TrajectoryVisualizer(jspec)
+    markers = [(np.array([0.3, 0.2]), {"radius": 4, "color": (0, 255, 0)})]
+    got_v = VIS.render_value_map(values, spec, traj=traj, positions=positions, yaw=0.7, markers=markers)
+    want_v = JVIS.render_value_map(values, jspec, traj=jtraj, positions=positions, yaw=0.7, markers=markers)
+    np.testing.assert_array_equal(got_v, want_v)
+    got_o = VIS.render_obstacle_map(obstacles, navigable, explored, frontiers, traj=traj, positions=positions, yaw=1.1)
+    want_o = JVIS.render_obstacle_map(obstacles, navigable, explored, frontiers, traj=jtraj, positions=positions,
+                                      yaw=1.1)
+    np.testing.assert_array_equal(got_o, want_o)
+    cloud = np.random.default_rng(1).uniform(-2, 2, (40, 2))
+    np.testing.assert_array_equal(VIS.paint_target_cloud(got_o.copy(), spec, cloud, downsample=2),
+                                  JVIS.paint_target_cloud(want_o.copy(), jspec, cloud, downsample=2))
+    rgb = np.random.default_rng(2).integers(0, 256, (48, 64, 3), dtype=np.uint8)
+    depth = np.random.default_rng(3).uniform(0, 1, (48, 64)).astype(np.float32)
+    texts = ["target: toilet", "a much longer line of text that has to wrap across the frame's width " * 2]
+    frame = VIS.compose_frame(rgb, depth, [got_v, got_o], texts)
+    np.testing.assert_array_equal(frame, JVIS.compose_frame(rgb, depth, [want_v, want_o], texts))
+    info = {"success": 1.0, "spl": 0.25, "nested": {"mode": "explore", "dist": 2}, "skip": [1, 2]}
+    np.testing.assert_array_equal(VIS.overlay_frame(frame, info, ["extra"]), JVIS.overlay_frame(frame, info, ["extra"]))
+    np.testing.assert_array_equal(VIS.rotate_image(got_v, 0.4), JVIS.rotate_image(want_v, 0.4))
+    np.testing.assert_array_equal(VIS.reorient_rescale_map(got_o), JVIS.reorient_rescale_map(want_o))
+
+
+@pytest.mark.parametrize("delayed", [False, True], ids=["aligned", "delayed"])
+def test_video_collector_matches_jax_and_writes_a_readable_file(tmp_path, delayed):
+    import cv2
+
+    values, obstacles, navigable, explored, _, _ = _seeded_maps(4)
+    port, ref = VID.VideoCollector(maps_delayed=delayed), JVID.VideoCollector(maps_delayed=delayed)
+    rng = np.random.default_rng(5)
+    for t in range(4):
+        rgb = rng.integers(0, 256, (30 + 2 * t, 40, 3), dtype=np.uint8)  # ragged heights pad to one size
+        depth = rng.uniform(0, 1, rgb.shape[:2]).astype(np.float32)
+        maps = [VIS.render_obstacle_map(obstacles, navigable, explored)]
+        for coll in (port, ref):
+            coll.collect(rgb, depth, maps, [f"step {t}"])
+    got, want = port.flush("timeout"), ref.flush("timeout")
+    assert len(got) == len(want) == (3 if delayed else 4)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    path = VID.write_video(got, str(tmp_path / "v.mp4"))
+    cap = cv2.VideoCapture(path)
+    assert int(cap.get(cv2.CAP_PROP_FRAME_COUNT)) == len(got)
+    cap.release()
+
+
+@pytest.mark.parametrize("plan,seed", [("two_room_plan", 0), ("open_room_plan", 1)])
+def test_super_oracle_episode_matches_jax(plan, seed):
+    cfg = dict(width=32, height=24, max_steps=120)
+    got = FBE.run_super_oracle_episode(ENV.FakeObjectNavEnv(getattr(ENV, plan)(seed), ENV.EnvConfig(**cfg)))
+    want = JFBE.run_super_oracle_episode(JENV.FakeObjectNavEnv(getattr(JENV, plan)(seed), JENV.EnvConfig(**cfg)))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.steps > 5 and got.path_length > 0
+    assert FBE.SuperOracleFBEPolicy().act({"oracle_action": np.int64(2)}) == 2
+
+
+def test_load_config_matches_jax(tmp_path, monkeypatch):
+    import yaml
+
+    d = {"camera": {"height": 96, "width": 128}, "max_frontiers": 16, "use_vqa": True}
+    (tmp_path / "c.yaml").write_text(yaml.safe_dump(d))
+    (tmp_path / "c.json").write_text(json.dumps(d))
+    (tmp_path / "empty.json").write_text("")
+    for src in (d, str(tmp_path / "c.yaml"), str(tmp_path / "c.json"), str(tmp_path / "empty.json")):
+        assert dataclasses.asdict(CFG.load_config(src)) == dataclasses.asdict(JCFG.load_config(src))
+    monkeypatch.setenv("MAP_FUSION_TYPE", "replace")
+    assert CFG.load_config({}).map_fusion_type == JCFG.load_config({}).map_fusion_type == "replace"
+    for mod in (CFG, JCFG):
+        with pytest.raises(ValueError, match="Unknown config keys"):
+            mod.load_config({"no_such_field": 1})

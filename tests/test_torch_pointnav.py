@@ -184,7 +184,7 @@ def test_reset_episodes_matches_jax():
 def test_stochastic_heads_are_not_ported():
     tpolicy = PN.PointNavPolicy.init_random(0, device="cpu")
     depth, goal, _ = _inputs(1, (224, 224))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="stochastic heads are not ported yet"):
         tpolicy.act(torch.from_numpy(depth), torch.from_numpy(goal), PN.initial_state(1, device="cpu"),
                      deterministic=False)
 

@@ -202,7 +202,7 @@ def test_oracle_farm_equals_recycled_driver(recycled):
 
 
 def test_sharding_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, `parallel/mesh.py`"):
         farm(SEEDS, sharding=object(), device="cpu")
 
 

@@ -18,14 +18,20 @@ map; the whole policy step with PointNav, the V1 frontier cache and the
 episode drivers; and the full stack, real perception feeding the batched
 step in one packed dispatch (``runner/full_stack.py``), with the streamed
 farm of sim worker processes over the shared-memory ring
-(``runner/sim_farm.py``, ``runner/obsring.py``, ``runner/packing.py``).
-Entry points put their tensors on the card
-unless the caller passes ``device="cpu"`` (``device.py``). The package
-imports neither jax nor ``vlfm_tpu``: the host modules it needs
-(``config``, ``models.tokenizer``, ``models.coco_classes``,
-``runner.fake_env``, ``runner.metrics``, ``utils.measurements``) are its
-own copies, and the ring's C++ source, ``native/obsring.cpp``, is built by
-the port's own compile step.
+(``runner/sim_farm.py``, ``runner/obsring.py``, ``runner/packing.py``);
+the VQA veto and ZoeDepth; and the evaluation entry points
+(``python -m vlfm_tpu_torch.run``, ``runner/demo.py``, the
+Habitat-protocol loop of ``adapters/habitat.py`` and
+``runner/habitat_eval.py``) with PointNav's behaviour cloning
+(``runner/imitation.py``). Entry points put their tensors on the card
+unless the caller passes ``device="cpu"`` (``device.py``; ``--cpu`` on the
+command lines). The package imports neither jax nor ``vlfm_tpu``: the host
+modules it needs (``config``, ``models.tokenizer``,
+``models.coco_classes``, ``runner.fake_env``, ``runner.metrics``,
+``utils.measurements``, ``runner.log_saver``, ``runner.analyze_logs``,
+``utils.visualization``, ``utils.video``, ``policy.action_replay``,
+``policy.oracle_fbe``) are its own copies, and the ring's C++ source,
+``native/obsring.cpp``, is built by the port's own compile step.
 """
 
 __version__ = "0.1.0"

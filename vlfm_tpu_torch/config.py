@@ -2,13 +2,16 @@
 
 The same frozen dataclasses with the same field names and defaults, so a
 configuration moves between the two packages unchanged
-(tests/test_torch_host.py holds the two to each other). Host-only: no
-tensors here.
+(tests/test_torch_host.py holds the two to each other), and the same
+``load_config`` (dict, JSON or YAML). Host-only: no tensors here.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -86,3 +89,30 @@ class VLFMConfig:
     @property
     def value_channels(self) -> int:
         return len(self.text_prompt.split("|"))
+
+
+def load_config(path_or_dict) -> VLFMConfig:
+    """Build a VLFMConfig from a dict, JSON, or YAML file (the JAX
+    package's ``load_config``: unknown keys raise, ``camera`` is a nested
+    dict, $MAP_FUSION_TYPE overrides the fusion type)."""
+    if isinstance(path_or_dict, dict):
+        d = dict(path_or_dict)
+    else:
+        text = open(path_or_dict).read()
+        if str(path_or_dict).endswith((".yaml", ".yml")):
+            import yaml
+
+            d = yaml.safe_load(text) or {}
+        else:
+            d = json.loads(text) if text.strip() else {}
+    cam = d.pop("camera", None)
+    names = {f.name for f in dataclasses.fields(VLFMConfig)}
+    unknown = set(d) - names
+    if unknown:
+        raise ValueError(f"Unknown config keys: {sorted(unknown)}")
+    cfg = VLFMConfig(**d)
+    if cam is not None:
+        cfg = dataclasses.replace(cfg, camera=CameraConfig(**cam))
+    if os.environ.get("MAP_FUSION_TYPE"):
+        cfg = dataclasses.replace(cfg, map_fusion_type=os.environ["MAP_FUSION_TYPE"])
+    return cfg

@@ -339,7 +339,7 @@ class PointNavPolicy:
         mean; the new state)."""
         if not deterministic:
             raise NotImplementedError(
-                "PointNav's stochastic heads are not ported yet (ROADMAP Queue 1 item 6)")
+                "PointNav's stochastic heads are not ported yet (their item of ROADMAP Queue 1)")
         net = self.module.net
         mask = state.not_done
         with exact_f32(depth.device):

@@ -59,6 +59,7 @@ from vlfm_tpu_torch.utils.measurements import TraveledStairs
 class DriverStats:
     env_steps: int = 0
     wall_time: float = 0.0
+    final_state: object = None  # set when run_episode(keep_state=True)
 
     @property
     def steps_per_sec(self) -> float:
@@ -314,10 +315,12 @@ def run_episode(
     max_steps: Optional[int] = None,
     seed: int = 0,
     on_step: Optional[Callable] = None,
+    keep_state: bool = False,
     device: torch.device | str = default_device(),
 ) -> tuple:
     """One episode to its end, as one lane (B = 1). ``on_step(env, obs,
-    info, state)`` sees every step. Returns (EpisodeResult, DriverStats)."""
+    info, state)`` sees every step; ``keep_state`` keeps the final state in
+    the stats. Returns (EpisodeResult, DriverStats)."""
     o = env.reset()
     state = itm.create_state(spec, cfg, device=device)
     stats = DriverStats()
@@ -344,6 +347,8 @@ def run_episode(
         o = env.step(int(back[0, 0]))
         stats.env_steps += 1
     stats.wall_time = time.time() - t0
+    if keep_state:
+        stats.final_state = state
     result = env_result(env, o, shortest, limit, detected=target_detected, seen=target_seen, stairs=stairs,
                         last_goal=last_goal, explored=state.obstacle.explored[0], spec=spec)
     return result, stats

@@ -19,7 +19,7 @@ random weights it runs every seam and measures the stack's throughput.
 - ``run_full_stack_episode``: one episode (B = 1) with model perception.
 
 The ViT-det SAM encoder behind JAX's ``tiny_sam_config`` is not ported
-(ROADMAP Queue 1 item 6): the port's SAM is MobileSAM.
+(ROADMAP Queue 1, SAM's ViT-det encoder): the port's SAM is MobileSAM.
 """
 
 from __future__ import annotations

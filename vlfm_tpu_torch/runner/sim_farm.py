@@ -309,7 +309,7 @@ def run_episodes_farm(
     farm's sharding over several cards waits for ``parallel/mesh.py``."""
     if sharding is not None:
         raise NotImplementedError(
-            "the farm's sharding is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1 item 6)")
+            "the farm's sharding is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1, `parallel/mesh.py`)")
     import torch
 
     from vlfm_tpu_torch.device import default_device
