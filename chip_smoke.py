@@ -7,7 +7,9 @@ Phases (any failure raises, and the script exits non-zero):
      turn TF32 off;
   1. build the CUDA kernels from ``vlfm_tpu_torch/csrc`` (nvcc, sm_90a);
   2. LayerNorm kernel (K1) against its plain version at the main path's
-     shapes, with CUDA-event timings of both and of ``F.layer_norm``;
+     shapes, with CUDA-event timings of both and of ``F.layer_norm``, and
+     the launch floor (an empty kernel, timed by the same method) beside
+     K1 and ``F.layer_norm`` at the robot path's B=1 shapes;
   3. attention kernel (K3) against its plain version: every variant at the
      ViT-g shape (32, 16, 257, 88) in bf16, the main path's layout (q, k, v
      as views of the fused qkv projection) at B=32 and at the spin's 12
@@ -81,7 +83,7 @@ Phases (any failure raises, and the script exits non-zero):
      points are accepted;
  19. batched closed-loop episodes at full width: a full-width PointNav
      (GN ResNet-18 at 224x224, 2x512 LSTM, random f32 weights from seed 0)
-     and 8 lanes of two_room_plan seeds 0-7 at 640x480 for 40 steps: per
+     and 8 lanes of two_room_plan seeds 0-7 at 640x480 for 30 steps: per
      step ITM on the 8 frames (K1, K3), the oracle target mask as detection
      0, one batched step (v2, PointNav), one action per lane (a finished
      lane idles). PointNav's random weights only turn, so after the spin
@@ -100,12 +102,12 @@ Phases (any failure raises, and the script exits non-zero):
  20. the full stack at full width: FullStackPerception over phase 6's
      BLIP2-ITM, phase 11's OWL-ViT (COCO route, the config's thresholds)
      and MobileSAM gated at 2 frames, and phase 19's PointNav; 8 lanes of
-     two_room_plan seeds 0-7 at 640x480 for 40 steps through
+     two_room_plan seeds 0-7 at 640x480 for 30 steps through
      make_fused_step with a packed layout (one pinned copy in, one (8, 4)
      read back per step; past the spin the environments steer by the
      greedy rule toward the returned goal); the frames with a detection and
      the SAM passes; K1, K2 and K3 counted per run and per step; the same
-     40 steps' recorded inputs through the unpacked signature give every
+     30 steps' recorded inputs through the unpacked signature give every
      lane's actions, detected flags and goals bit for bit; one fused
      dispatch and ``batch`` alone timed at B=8 and B=1 (wall, device time,
      idle share, launches, host syncs, env-steps/s, bytes per dispatch);
@@ -151,16 +153,33 @@ Phases (any failure raises, and the script exits non-zero):
      greedy controller on the same episodes: success rate (above 0) and
      env-steps/s;
  24. the Habitat-protocol loop at full width: habitat_eval.evaluate over
-     FakeHabitatEnv on 2 two_room_plan episodes at 640x480 of at most 60
+     FakeHabitatEnv on 2 two_room_plan episodes at 640x480 of at most 40
      steps, HabitatVLFMAgent (v2, phase 23's fitted PointNav) over
      FullStackPerception with phase 20's models, logs and videos in a
      temporary directory: K1, K2 and K3 launches per act, the logs'
      analyze_logs summary against the results, one video frame per step
      but the last; one act at B=1 timed (wall, device, idle, launches,
      host syncs); then ``python -m vlfm_tpu_torch.run --backend synthetic
-     --episodes 2 --max-steps 60`` and ``python -m
+     --episodes 2 --max-steps 40`` and ``python -m
      vlfm_tpu_torch.runner.demo --episodes 1`` as subprocesses, each
-     exiting 0 with its JSON.
+     exiting 0 with its JSON;
+ 25. the robot path at full width, B=1: FakeRobot(seed=0) ->
+     ObjectNavEnv (all body cameras for 10 steps) -> RealityITMPolicyV2
+     (v2, a continuous PointNav at 224x224) with hooks over phase 20's
+     models (BLIP2-ITM cosines; OWL-ViT with the COCO route for "toilet",
+     MobileSAM gated at 2) and phase 22's ZoeD_NK, 24 actions (a stop
+     starts a new episode): the 8 arm yaws with the base still, finite
+     actions, ZoeD_NK exactly on the steps with a detection, K1, K2 and K3
+     counted; each step re-run on the CPU from the card's state before it
+     and its recorded inputs (grids but for cone-edge flips, frontiers,
+     value map, object map, actions); a checkpoint after step 12
+     (``runner/checkpoint.py``) restored into a fresh policy fed the
+     recorded hook outputs gives the same actions and maps; the value-map
+     updates recorded (``mapping/value_map_io.py``) and replayed on the CPU
+     against the same updates on the card; one get_action timed with and
+     without a detection (wall, device, idle, launches, syncs;
+     ``utils/profiling.StepTimer``) and by part (perception, ZoeD_NK, the
+     six obstacle updates, the rest of ``reality_step``).
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -190,6 +209,7 @@ from vlfm_tpu_torch.kernels.build import load_library
 from vlfm_tpu_torch.mapping import object_map as OBJ
 from vlfm_tpu_torch.mapping import obstacle_map as OM
 from vlfm_tpu_torch.mapping import value_map as VM
+from vlfm_tpu_torch.mapping import value_map_io as VIO
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
 from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
@@ -222,11 +242,15 @@ from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline, VQAVet
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy
 from vlfm_tpu_torch.policy import itm as ITM
+from vlfm_tpu_torch.policy import reality as REAL
 from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
+from vlfm_tpu_torch.reality.envs import ObjectNavEnv, RealityEnvConfig
+from vlfm_tpu_torch.reality.robots import FakeRobot
 from vlfm_tpu_torch.runner import imitation as IM
 from vlfm_tpu_torch.runner import metrics as RM
 from vlfm_tpu_torch.runner import packing
 from vlfm_tpu_torch.runner.analyze_logs import load_logs, summarize
+from vlfm_tpu_torch.runner.checkpoint import map_tensors, restore_pytree, save_pytree
 from vlfm_tpu_torch.runner.episode_driver import read_back, run_episode, run_episodes_recycled, step_inputs
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, open_room_plan, two_room_plan
 from vlfm_tpu_torch.runner.full_stack import FullStackPerception
@@ -234,6 +258,7 @@ from vlfm_tpu_torch.runner.habitat_eval import FakeHabitatEnv, evaluate
 from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
 from vlfm_tpu_torch.utils.geometry import rho_theta, xyz_yaw_to_tf_matrix
 from vlfm_tpu_torch.utils.img import resize_area
+from vlfm_tpu_torch.utils.profiling import StepTimer
 
 DEV = torch.device("cuda", 0)
 TARGET = "chair"
@@ -272,6 +297,7 @@ LN_CASES = [
     (1 * 577, 768, torch.bfloat16, 1e-5),
     (1 * 576, 768, torch.bfloat16, 1e-5),
 ]
+LN_ROBOT_SHAPES = ((257, 1408), (32, 768), (577, 768), (576, 768), (8, 512))  # phase 25's B=1 rows
 LN_F32_ATOL = 2e-5  # bf16: ops.norms.bf16_tolerance, one bf16 ulp of plain
 TINY_COS_ATOL = 1e-3
 LAUNCHES_TEXT = 25  # Q-Former text branch: embed_ln + 12 x (self_ln, ffn_text_ln)
@@ -382,7 +408,7 @@ K4_PER_DETECT = deformable_attentions(GroundingDinoConfig())  # 6 encoder + 6 de
 BATCH_LANES = 8  # phase 17: episodes in one batch
 ITM_BATCH = 32  # phase 17: frames per ITM call
 OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
-EPISODE_STEPS = 40  # phase 19: the 12-turn spin, then 28 steps
+EPISODE_STEPS = 30  # phases 19-20: the 12-turn spin, then 18 steps
 PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN picks its algorithms per batch)
 FARM_EPISODES = 16  # phases 19-20: open_room_plan episodes on BATCH_LANES lanes
 FULL_FARM_STEPS = 20  # phase 20: the full stack's farms, steps per episode (the oracle farm's are EPISODE_STEPS)
@@ -419,9 +445,19 @@ TRAINED_SEEDS = list(range(400, 416))
 TRAINED_ENV_STEPS = 120
 # phase 24: the Habitat-protocol loop over FakeHabitatEnv at 640x480
 HABITAT_EPISODES = 2
-HABITAT_STEPS = 60
+HABITAT_STEPS = 40  # phase 24: steps per episode, and the CLI run's
 HABITAT_TARGET = "toilet"  # HM3D goal 3, FakeHabitatEnv's object category
 CLI_TIMEOUT_S = 300
+# phase 25: the robot path
+REALITY_ACTIONS = 24
+REALITY_TARGET = "toilet"
+REALITY_CKPT_AFTER = 12  # actions before the checkpoint
+REALITY_TIMED = 5  # get_action calls per timed median
+REALITY_ACTION_ATOL = 1e-5  # angular, linear, rho, theta: the card's step against its CPU replay
+REALITY_FRONTIER_ATOL_M = 1e-6  # where the step's grids agree bit for bit (else phase 5's FRONTIER_ATOL_M)
+REALITY_VALUE_ATOL = 1e-5  # the value map: a step's replay, and a recording's replay (cone-edge cells aside)
+REALITY_CKPT_ATOL = 1e-6  # the resumed run against the live one, should cuDNN break bit-equality
+REALITY_CELLS = 6 * 288 * 288  # cells a step's six obstacle updates may touch (the flip allowance's base)
 
 
 def log(msg: str) -> None:
@@ -502,9 +538,16 @@ def bound(n_bytes: float, n_ops: float, dtype: torch.dtype) -> tuple[float, str]
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def launch_floor_ms() -> float:
+    """The event-to-event time of an empty kernel (a zero-cycle spin), by
+    ``_median_ms``: the least time any launch shows by this method."""
+    return _median_ms(lambda: torch.cuda._sleep(0))
+
+
 def phase_layer_norm() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows_out = []
+    floor = launch_floor_ms()
     for rows, d, dt, eps in LN_CASES:
         x = (torch.randn(rows, d, generator=gen, device=DEV) * 2.0 + 0.5).to(dt)
         scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=DEV)
@@ -537,7 +580,14 @@ def phase_layer_norm() -> dict:
         check(ok, f"layer_norm {rows}x{d} {dt} disagrees with its plain version")
         rows_out.append(dict(shape=(rows, d), max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
-    return rows_out[0]  # the ViT-g serving shape stands for the kernel
+    floor = min(floor, launch_floor_ms())  # timed again at the end: the same moment as the cases
+    small = [r for r in rows_out if r["shape"] in LN_ROBOT_SHAPES]
+    log(f"[layer_norm] launch floor (an empty kernel, event to event, median of 50): {floor:.4f} ms; at the robot "
+        f"path's B=1 shapes " + "; ".join(
+            f"{r['shape']} K1 {r['ms']:.4f} ms = {r['ms'] / floor:.2f}x the floor, F.layer_norm {r['library_ms']:.4f} "
+            f"= {r['library_ms'] / floor:.2f}x, bound {r['bound_ms'] * 1e3:.2f} us" for r in small))
+    check(len(small) == len(LN_ROBOT_SHAPES), "phase 25's LayerNorm shapes are not all timed")
+    return {**rows_out[0], "launch_floor_ms": floor}  # the ViT-g serving shape stands for the kernel
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -2138,7 +2188,7 @@ def phase_tiny_zoedepth() -> None:
         check(err <= TINY_ZOE_ATOL and inf_err <= TINY_ZOE_ATOL, f"tiny ZoeDepth {name}: card differs from CPU")
 
 
-def phase_zoedepth(engine: PerceptionEngine, det, sam, rgb: torch.Tensor, smi: str) -> None:
+def phase_zoedepth(engine: PerceptionEngine, det, sam, rgb: torch.Tensor, smi: str) -> ZoeDepth:
     zoe = ZoeDepth.init_random(ZoeDepthConfig.nk(), seed=0, device=DEV)
     cast_for_serving(zoe.module)
     n_params = sum(p.numel() for p in zoe.module.parameters())
@@ -2193,6 +2243,7 @@ def phase_zoedepth(engine: PerceptionEngine, det, sam, rgb: torch.Tensor, smi: s
     log(f"[zoe] FullStackPerception with all-ones depth and {int(valid.sum())} valid detections: depth inferred "
         f"(mean {float(inferred.mean()):.4f}, equal to infer_depth on the frame); with the sensor's depth the same "
         f"object comes back")
+    return zoe
 
 
 # --- phase 23 ----------------------------------------------------------------
@@ -2390,12 +2441,310 @@ def phase_habitat_eval(engine: PerceptionEngine, det, sam, pointnav, smi: str) -
         f"the profiler {busy:.2f} ms of device time, idle share {1 - busy / pwall:.3f}; {kernels} kernel launches + "
         f"{copies} copies/sets, {syncs} host syncs; on {smi}")
 
-    run_out = cli_json(["vlfm_tpu_torch.run", "--backend", "synthetic", "--episodes", "2", "--max-steps", "60"])
+    run_out = cli_json(["vlfm_tpu_torch.run", "--backend", "synthetic", "--episodes", "2", "--max-steps",
+                        str(HABITAT_STEPS)])
     check(run_out["episodes"] == 2 and run_out["avg_steps"] > 0, f"run.py's aggregate {run_out}")
     demo_out = cli_json(["vlfm_tpu_torch.runner.demo", "--episodes", "1"])
     check(demo_out["episodes"] == 1 and demo_out["avg_steps"] > 0, f"the demo's aggregate {demo_out}")
-    log(f"[cli] run.py (synthetic, 2 episodes of at most 60 steps): {json.dumps(run_out)}; the demo (1 episode): "
+    log(f"[cli] run.py (synthetic, 2 episodes of at most {HABITAT_STEPS} steps): {json.dumps(run_out)}; the demo (1 episode): "
         f"{json.dumps(demo_out)}; on {smi}")
+    return launches
+
+
+# --- phase 25 ----------------------------------------------------------------
+class RealityHooks:
+    """``RealityITMPolicyV2``'s perception hooks as closures over the full
+    stack and ZoeD_NK: ``score`` (the ITM cosines), ``detect`` (the
+    target's masks and validity) and ``infer_depth`` (counted). With
+    ``replay`` set to a step's recorded outputs they return those; with
+    ``blind`` every detection is dropped (a step without one)."""
+
+    def __init__(self, perception: FullStackPerception, zoe: ZoeDepth, target: str):
+        self.perception, self.zoe, self.target = perception, zoe, target
+        self.depth_calls, self.blind, self.replay = 0, False, None
+
+    @staticmethod
+    def _frame(rgb: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(rgb).to(DEV)[None]
+
+    def score(self, rgb):
+        if self.replay is not None:
+            return self.replay["cos"]
+        return self.perception.engine.score(self._frame(rgb), self.target)[0]
+
+    def detect(self, rgb):
+        if self.replay is not None:
+            return self.replay["masks"], self.replay["valid"]
+        masks, valid, _ = self.perception.pipeline(self._frame(rgb), self.target)
+        return masks[0], torch.zeros_like(valid[0]) if self.blind else valid[0]
+
+    def infer_depth(self, rgb, min_depth, max_depth):
+        self.depth_calls += 1
+        if self.replay is not None:
+            return self.replay["depth"]
+        return self.zoe.infer_depth(self._frame(rgb), min_depth, max_depth)[0]
+
+    def fns(self) -> dict:
+        return dict(score_fn=self.score, detect_fn=self.detect, infer_depth_fn=self.infer_depth)
+
+
+def clone_tree(tree):
+    return map_tensors(lambda t: t.clone(), tree)
+
+
+def tree_diff(a, b) -> tuple[bool, float]:
+    """(bit-equal, largest absolute difference) of two trees of tensors of
+    the same structure."""
+    fa, fb = [], []
+    map_tensors(fa.append, a)
+    map_tensors(fb.append, b)
+    equal = len(fa) == len(fb) and all(torch.equal(x, y) for x, y in zip(fa, fb))
+    worst = max(float((x.double() - y.double()).abs().max()) for x, y in zip(fa, fb) if x.numel())
+    return equal, worst
+
+
+def reality_replay(step: dict, cpu_pointnav, spec, cfg) -> dict:
+    """The card's step re-run on the CPU (plain versions) from the card's
+    state before it and the same inputs; each quantity against the card's."""
+    cpu = lambda tree: map_tensors(lambda t: t.cpu(), tree)  # noqa: E731
+    act, st = REAL.reality_step(cpu(step["before"]), *cpu(step["inputs"]), pointnav=cpu_pointnav, spec=spec,
+                                cfg=cfg, version="v2")
+    got, card = cpu(step["after"]), step["action"]
+    flips = {n: int((getattr(got.obstacle, n) != getattr(st.obstacle, n)).sum())
+             for n in ("obstacles", "navigable", "explored")}
+    fr_atol = REALITY_FRONTIER_ATOL_M if not any(flips.values()) else FRONTIER_ATOL_M
+    value_far = max(int(((getattr(got.value, n) - getattr(st.value, n)).abs() > REALITY_VALUE_ATOL)
+                        .reshape(*got.value.conf.shape, -1).any(-1).sum()) for n in ("conf", "values"))
+    exact = ("point_valid", "slot_used", "point_in_range", "cursor", "has_last_target")
+    r = dict(
+        flips=flips,
+        frontiers_valid=torch.equal(got.obstacle.frontiers_valid, st.obstacle.frontiers_valid),
+        frontier_err=float((got.obstacle.frontiers_xy - st.obstacle.frontiers_xy).abs().max()),
+        frontier_atol=fr_atol,
+        value_far=value_far,
+        value_err=float((got.value.values - st.value.values).abs().max()),
+        objmap_exact=all(torch.equal(getattr(got.objmap, n), getattr(st.objmap, n)) for n in exact),
+        point_err=max(float((getattr(got.objmap, n) - getattr(st.objmap, n)).abs().max())
+                      for n in ("points", "last_target")),
+        action_err=max(abs(card[n] - float(getattr(act, n)[0])) for n in ("angular", "linear")),
+        rho_theta_err=max(abs(c - float(t[0])) for c, t in zip(card["rho_theta"], (act.rho, act.theta))),
+        exact_flags=card["arm_yaw"] == float(act.arm_yaw[0]) and card["stop"] == bool(act.stop[0]),
+        pointnav_err=max(float((getattr(got.pointnav, n) - getattr(st.pointnav, n)).abs().max())
+                         for n in ("h", "c", "prev_action")),
+    )
+    r["ok"] = (all(f <= MAP_FLIPS * REALITY_CELLS for f in flips.values()) and r["frontiers_valid"]
+               and r["frontier_err"] <= fr_atol and r["value_far"] <= MAP_FLIPS * 256 * 256
+               and r["objmap_exact"] and r["point_err"] <= OBJ_POINT_ATOL
+               and max(r["action_err"], r["rho_theta_err"]) <= REALITY_ACTION_ATOL and r["exact_flags"])
+    return r
+
+
+def reality_timing(label: str, fn, sync_on: torch.Tensor, smi: str) -> dict:
+    """Wall ms (``StepTimer``, median of REALITY_TIMED), device ms, idle
+    share and launches (torch.profiler, one call) and host syncs of ``fn``."""
+    timer = StepTimer()
+    for _ in range(REALITY_TIMED):
+        with timer.section(label, sync_on=sync_on):
+            fn()
+    kernels, copies, busy, wall = launch_profile(fn)
+    r = dict(ms=timer.summary()[label]["p50_ms"], device_ms=busy, idle=1 - busy / wall, kernels=kernels,
+             copies=copies, syncs=host_syncs(fn))
+    log(f"[reality-time] B=1 {label}: {r['ms']:.2f} ms wall (median of {REALITY_TIMED}); under the profiler "
+        f"{r['device_ms']:.2f} ms of device time, idle share {r['idle']:.3f}; {r['kernels']} kernel launches + "
+        f"{r['copies']} copies/sets, {r['syncs']} host syncs; on {smi}")
+    return r
+
+
+def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -> dict:
+    """FakeRobot -> ObjectNavEnv -> RealityITMPolicyV2 at B=1 and full
+    width: 24 actions with the full stack's hooks and ZoeD_NK, each step
+    replayed on the CPU, a checkpoint after step 12 resumed, the value-map
+    updates recorded and replayed, and one get_action timed by part."""
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY)
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    perception = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam,
+                                     det_threshold=cfg.non_coco_threshold, device=DEV)
+    hooks = RealityHooks(perception, zoe, REALITY_TARGET)
+    pointnav = PointNavPolicy.init_random(0, depth_shape=tuple(cfg.depth_image_shape), discrete=False, device=DEV)
+    policy = REAL.RealityITMPolicyV2(spec, cfg, pointnav=pointnav, version="v2", seed=0, device=DEV, **hooks.fns())
+    env = ObjectNavEnv(FakeRobot(seed=0), RealityEnvConfig(all_cams_until_step=10))
+    perception.engine.text_features(REALITY_TARGET)  # cached before the counts
+    perception.pipeline._queries(REALITY_TARGET)
+    perception.pipeline.coco_detector._coco_queries()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rec_dir, ckpt = os.path.join(tmp, "value_map"), os.path.join(tmp, "robot.pt")
+        recorder = VIO.ValueMapRecorder(rec_dir, kwargs={"value_channels": cfg.value_channels})
+        steps, episodes, ep_step = [], 1, 0
+        obs = env.reset(REALITY_TARGET)
+        timer = StepTimer()
+        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        t0 = time.perf_counter()
+        for k in range(REALITY_ACTIONS):
+            before, calls = clone_tree(policy.state), hooks.depth_calls
+            with timer.section("get_action"):  # ends in the action's read back
+                action = policy.get_action(obs)
+            body, hand, cos, value_depth = policy.last_inputs[:4]
+            recorder.record(cos[0], value_depth[0], hand.tf[0], 0.0, hand.max_depth, hand.fov)
+            steps.append(dict(obs=obs, before=before, inputs=policy.last_inputs, action=action, ep_step=ep_step,
+                              inferred=hooks.depth_calls - calls, after=clone_tree(policy.state)))
+            if k + 1 == REALITY_CKPT_AFTER:
+                save_pytree(ckpt, {"state": policy.state, "rng": policy.rng})
+            if action["stop"]:
+                obs, ep_step, episodes = env.reset(REALITY_TARGET), 0, episodes + 1
+                policy.reset()
+            else:
+                obs, ep_step = env.step(action), ep_step + 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(layer_norm=layer_norm.launches, attention=attention.launches,
+                        mbconv_chain=mbconv_chain.launches)
+        detected = [bool(s["inputs"][6].any()) for s in steps]
+        xy, yaw = env.robot.xy_yaw
+        log(f"[reality] FakeRobot(seed=0) -> ObjectNavEnv -> RealityITMPolicyV2 (v2, B=1, continuous PointNav at "
+            f"224x224, BLIP2-ITM, OWL-ViT with the COCO route ({REALITY_TARGET}), MobileSAM gated at {SAM_CAPACITY}, "
+            f"ZoeD_NK; {spec.size}+2x{spec.pad} px maps): {REALITY_ACTIONS} actions in {wall:.2f} s incl. first "
+            f"calls, {episodes} episode(s); steps with a detection {sum(detected)}, ZoeD_NK calls "
+            f"{sum(s['inferred'] for s in steps)}; stops {sum(s['action']['stop'] for s in steps)}; robot at "
+            f"({xy[0]:.3f}, {xy[1]:.3f}) m, yaw {yaw:.3f}; K1 {launches['layer_norm']}, K2 "
+            f"{launches['mbconv_chain']}, K3 {launches['attention']}; get_action "
+            f"{timer.summary()['get_action']['p50_ms']:.2f} ms wall (median of {REALITY_ACTIONS}, incl. first) on {smi}")
+        for s, det_any in zip(steps, detected):
+            a, j = s["action"], s["ep_step"]
+            check(all(np.isfinite([a["angular"], a["linear"], a["arm_yaw"], *a["rho_theta"]])), f"action {a} not finite")
+            if j < REAL.NUM_INIT_YAWS:
+                check(a["arm_yaw"] == float(REAL.INITIAL_ARM_YAWS[j]) and a["angular"] == a["linear"] == 0.0,
+                      f"start step {j}: {a} is not arm yaw {REAL.INITIAL_ARM_YAWS[j]} with the base still")
+            else:
+                check(a["arm_yaw"] == -1.0, f"step {j} after the start moved the arm: {a}")
+            check(s["inferred"] == int(det_any), f"ZoeD_NK ran {s['inferred']} times on a step with detection "
+                  f"{det_any}")
+        check(all(v > 0 for v in launches.values()), f"the robot path launched no K1, K2 or K3: {launches}")
+
+        # Each step again on the CPU, from the card's state before it.
+        cpu_pointnav = PointNavPolicy(copy.deepcopy(pointnav.module).cpu())
+        t1 = time.perf_counter()
+        replays = [reality_replay(s, cpu_pointnav, spec, cfg) for s in steps]
+        worst = {key: max(r[key] for r in replays) for key in ("frontier_err", "value_far", "value_err", "point_err",
+                                                             "action_err", "rho_theta_err", "pointnav_err")}
+        flips = {n: max(r["flips"][n] for r in replays) for n in ("obstacles", "navigable", "explored")}
+        log(f"[reality] each step replayed on the CPU from the card's state ({time.perf_counter() - t1:.2f} s): "
+            f"grid flips per step at most {flips} (tol {MAP_FLIPS} of {REALITY_CELLS} cells); frontier validity "
+            f"equal on {sum(r['frontiers_valid'] for r in replays)}/{len(replays)}, positions within "
+            f"{worst['frontier_err']:.3e} m (tol {REALITY_FRONTIER_ATOL_M} on steps with equal grids, "
+            f"{sum(r['frontier_atol'] == REALITY_FRONTIER_ATOL_M for r in replays)} of them, else {FRONTIER_ATOL_M}); "
+            f"value map max err {worst['value_err']:.3e}, cells beyond {REALITY_VALUE_ATOL} at most "
+            f"{worst['value_far']} (tol {MAP_FLIPS} of 256x256); object map flags equal on "
+            f"{sum(r['objmap_exact'] for r in replays)}/{len(replays)}, points within {worst['point_err']:.3e} m "
+            f"(tol {OBJ_POINT_ATOL}); angular/linear within {worst['action_err']:.3e}, rho/theta "
+            f"{worst['rho_theta_err']:.3e} (tol {REALITY_ACTION_ATOL}); arm_yaw and stop equal on "
+            f"{sum(r['exact_flags'] for r in replays)}/{len(replays)}; PointNav h/c/prev_action within "
+            f"{worst['pointnav_err']:.3e}")
+        for k, r in enumerate(replays):
+            check(r["ok"], f"reality step {k}: the CPU replay differs from the card: {r}")
+
+        # The checkpoint after step 12, restored into a fresh policy fed the
+        # recorded hook outputs for the remaining steps.
+        replay_hooks = RealityHooks(perception, zoe, REALITY_TARGET)
+        resumed = REAL.RealityITMPolicyV2(spec, cfg, pointnav=pointnav, version="v2", seed=0, device=DEV,
+                                          **replay_hooks.fns())
+        got = restore_pytree(ckpt, {"state": resumed.state, "rng": resumed.rng})
+        same_state, _ = tree_diff(got["state"], steps[REALITY_CKPT_AFTER - 1]["after"])
+        check(same_state, "the restored state differs from the saved one")
+        resumed.state, resumed.rng = got["state"], got["rng"]
+        act_err, bit_equal_actions = 0.0, True
+        for s in steps[REALITY_CKPT_AFTER:]:
+            if s["ep_step"] == 0:
+                resumed.reset()
+            inp = s["inputs"]
+            replay_hooks.replay = dict(cos=inp[2][0], masks=inp[5][0], valid=inp[6][0], depth=inp[4][0])
+            a = resumed.get_action(s["obs"])
+            bit_equal_actions &= a == s["action"]
+            act_err = max(act_err, *(abs(a[n] - s["action"][n]) for n in ("angular", "linear", "arm_yaw")),
+                          *(abs(x - y) for x, y in zip(a["rho_theta"], s["action"]["rho_theta"])))
+            check(a["stop"] == s["action"]["stop"], "the resumed run stopped elsewhere")
+        bit_equal_maps, map_err = tree_diff(resumed.state, steps[-1]["after"])
+        log(f"[reality] checkpoint after step {REALITY_CKPT_AFTER} (save_pytree/restore_pytree) resumed in a fresh "
+            f"policy on the recorded hook outputs for steps {REALITY_CKPT_AFTER + 1}-{REALITY_ACTIONS}: actions "
+            f"bit-equal {bit_equal_actions} (max diff {act_err:.3e}), final state bit-equal {bit_equal_maps} (max "
+            f"diff {map_err:.3e}; tol {REALITY_CKPT_ATOL})")
+        check(act_err <= REALITY_CKPT_ATOL and map_err <= REALITY_CKPT_ATOL, "the resumed run differs from the live one")
+
+        # The recorded value-map updates, replayed on the CPU, against the
+        # same updates on the card (without the explored mask, which a
+        # recording does not carry).
+        ref = VM.create(spec, cfg.value_channels, device=DEV)
+        for s in steps:
+            _, hand, cos, value_depth = s["inputs"][:4]
+            VM.update(ref, spec, cos, value_depth, hand.tf, 0.0, hand.max_depth, hand.fov)
+        rep = VIO.replay(rec_dir, spec, cfg.value_channels, device="cpu")
+        far = {n: int(((getattr(rep, n) - getattr(ref, n).cpu()).abs() > REALITY_VALUE_ATOL)
+                      .reshape(*rep.conf.shape, -1).any(-1).sum()) for n in ("conf", "values")}
+        err = max(float((getattr(rep, n) - getattr(ref, n).cpu()).abs().max()) for n in ("conf", "values"))
+        n_rec = len(os.listdir(rec_dir)) - 2
+        log(f"[reality] ValueMapRecorder: {n_rec} updates recorded; replay on the CPU against the card's map of the "
+            f"same updates: cells beyond {REALITY_VALUE_ATOL} {far} (tol {MAP_FLIPS} of {REALITY_ACTIONS} x 256x256), "
+            f"max err {err:.3e}; confidence mass {float(rep.conf.sum()):.1f}")
+        check(n_rec == REALITY_ACTIONS and float(rep.conf.sum()) > 0, "the recording is missing updates")
+        check(all(f <= MAP_FLIPS * REALITY_ACTIONS * 256 * 256 for f in far.values()),
+              "the replayed value map differs from the card's")
+
+    # One get_action at B=1, with and without a detection, each on a new
+    # episode's first steps (all five body cameras).
+    for label, blind in (("get_action with a detection (ZoeD_NK runs)", False),
+                         ("get_action without a detection", True)):
+        hooks.blind, ep = blind, {"obs": env.reset(REALITY_TARGET)}
+        policy.reset()
+
+        def act():
+            ep["action"] = policy.get_action(ep["obs"])  # ends in the action's read back
+
+        def step_env():  # each act's detection flag and body cameras
+            seen.append((bool(policy.last_inputs[6].any()), sum(policy.last_inputs[0].valid)))
+            ep["obs"] = env.step(ep["action"])
+
+        seen, timed = [], StepTimer()
+        before = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        act()  # a warm-up, and one act's launches
+        per_act = [a - b for a, b in zip((layer_norm.launches, mbconv_chain.launches, attention.launches), before)]
+        step_env()
+        for _ in range(REALITY_TIMED):
+            with timed.section(label):
+                act()
+            step_env()
+        kernels, copies, busy, pwall = launch_profile(act)
+        step_env()
+        syncs = host_syncs(act)
+        step_env()
+        check(seen == [(not blind, REAL.MAX_BODY_CAMS)] * len(seen), f"{label}: (detection, body cameras) {seen}")
+        ms = timed.summary()[label]["p50_ms"]
+        log(f"[reality-time] B=1 {label}: {ms:.2f} ms wall (median of {REALITY_TIMED}), {1e3 / ms:.1f} actions/s; "
+            f"under the profiler {busy:.2f} ms of device time, idle share {1 - busy / pwall:.3f}; {kernels} kernel "
+            f"launches + {copies} copies/sets, {syncs} host syncs; K1 {per_act[0]}, K2 {per_act[1]}, K3 "
+            f"{per_act[2]} per act; on {smi}")
+
+    # The last step with a detection's parts: perception, ZoeD_NK, the six
+    # obstacle updates and reality_step whole, on a copy of its state.
+    hooks.blind = False
+    policy.reset()
+    ep = {"obs": env.reset(REALITY_TARGET)}
+    policy.get_action(ep["obs"])
+    rgb, inputs, st = ep["obs"]["rgb"], policy.last_inputs, clone_tree(policy.state)
+    body, hand = inputs[:2]
+    check(bool(inputs[6].any()) and sum(body.valid) == REAL.MAX_BODY_CAMS, "the timed step needs a detection")
+    sync_on = policy.rng
+    parts = {
+        "perception (ITM cosines; OWL-ViT, COCO route, gated SAM)": lambda: (hooks.score(rgb), hooks.detect(rgb)),
+        "ZoeD_NK infer_depth": lambda: hooks.infer_depth(rgb, 0.0, hand.max_depth),
+        "the six obstacle updates (fuse_cameras)": lambda: REAL.fuse_cameras(st.obstacle, spec, cfg, body, hand,
+                                                                            st.steps),
+        "reality_step whole": lambda: REAL.reality_step(st, *inputs, pointnav=pointnav, spec=spec, cfg=cfg),
+    }
+    split = {name: reality_timing(name, fn, sync_on, smi) for name, fn in parts.items()}
+    whole, obst = split["reality_step whole"], split["the six obstacle updates (fuse_cameras)"]
+    log(f"[reality-time] B=1 the rest of reality_step (value map, object map, frontier choice, PointNav, mode "
+        f"machine): {whole['ms'] - obst['ms']:.2f} ms wall, {whole['device_ms'] - obst['device_ms']:.2f} ms device, "
+        f"{whole['kernels'] - obst['kernels']} launches, {whole['syncs'] - obst['syncs']} host syncs; on {smi}")
     return launches
 
 
@@ -2428,6 +2777,7 @@ def kernel_record(name: str, replaces: str, launches_by_path: dict, timed: dict)
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
         **{k: timed[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **({"launch_floor_ms": timed["launch_floor_ms"]} if "launch_floor_ms" in timed else {}),
     }
 
 
@@ -2498,14 +2848,16 @@ def main() -> None:
     del bridge
     lap("21 VQA veto")
     phase_tiny_zoedepth()
-    phase_zoedepth(engine, det, sam, rgb, smi)
+    zoe = phase_zoedepth(engine, det, sam, rgb, smi)
     lap("22 ZoeDepth")
     phase_bc_tiny()
     fitted = phase_bc(spec, smi)
     lap("23 behaviour cloning")
     habitat_run = phase_habitat_eval(engine, det, sam, fitted, smi)
     lap("24 Habitat-protocol loop, CLIs")
-    del engine, det, sam
+    reality_run = phase_reality(engine, det, sam, zoe, smi)
+    lap("25 robot path")
+    del engine, det, sam, zoe
     log("[phase-time] " + "; ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
 
@@ -2525,6 +2877,8 @@ def main() -> None:
           "the full stack with the veto launched no K1, K2 or K3")
     check(all(habitat_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the Habitat-protocol loop launched no K1, K2 or K3")
+    check(all(reality_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the robot path launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
@@ -2533,19 +2887,19 @@ def main() -> None:
                            "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
                            "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
                            "vqa_full_stack_step": vqa_stack_run["layer_norm"],
-                           "habitat_eval": habitat_run["layer_norm"]}, ln),
+                           "habitat_eval": habitat_run["layer_norm"], "reality": reality_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],
                            "full_stack_step": full_stack_run["mbconv_chain"],
                            "vqa_full_stack_step": vqa_stack_run["mbconv_chain"],
-                           "habitat_eval": habitat_run["mbconv_chain"]}, k2),
+                           "habitat_eval": habitat_run["mbconv_chain"], "reality": reality_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
                            "decision_step": episodes_run["attention"],
                            "full_stack_step": full_stack_run["attention"], "vqa_veto": veto_run["attention"],
                            "vqa_full_stack_step": vqa_stack_run["attention"],
-                           "habitat_eval": habitat_run["attention"]}, k3),
+                           "habitat_eval": habitat_run["attention"], "reality": reality_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

@@ -778,3 +778,105 @@ def test_bc_loss_backward_card_matches_cpu(dev):
     for name, want in gc.items():
         scale = float(want.abs().max())
         torch.testing.assert_close(gg[name], want, rtol=1e-4, atol=1e-5 * scale, msg=name)
+
+
+def _open_space_robot():
+    """A FakeRobot with a constant 3 m depth (tests/test_torch_reality.py's)."""
+    from vlfm_tpu_torch.reality.robots import FakeRobot
+
+    class OpenSpaceRobot(FakeRobot):
+        def get_camera_data(self, camera_ids):
+            out = super().get_camera_data(camera_ids)
+            for cid, cam in out.items():
+                if "depth" in cid:
+                    cam.image = np.full_like(cam.image, 3000)
+            return out
+
+    return OpenSpaceRobot()
+
+
+def _reality_hooks():
+    """Seeded cosines, a centred detection on two frames after the arm's
+    start and a constant inferred depth (tests/test_torch_reality.py's)."""
+    from vlfm_tpu_torch.policy.reality import NUM_INIT_YAWS
+
+    rng, calls = np.random.default_rng(0), {"n": 0}
+
+    def detect(rgb):
+        calls["n"] += 1
+        h, w = rgb.shape[:2]
+        masks, valid = np.zeros((8, h, w), bool), np.zeros(8, bool)
+        if calls["n"] in (NUM_INIT_YAWS + 1, NUM_INIT_YAWS + 2):
+            masks[0, h // 3: 2 * h // 3, w // 3: 2 * w // 3], valid[0] = True, True
+        return masks, valid
+
+    return dict(score_fn=lambda rgb: rng.uniform(0, 1, 1).astype(np.float32), detect_fn=detect,
+                infer_depth_fn=lambda rgb, mn, mx: np.full(rgb.shape[:2], 0.4, np.float32))
+
+
+@pytest.mark.parametrize("controller", ["greedy", "neural"])
+def test_reality_step_card_matches_cpu(dev, controller):
+    """The robot path at the CPU tests' size (a 256 px map, Spot's
+    cameras), NUM_INIT_YAWS + 12 steps on the card and on the CPU from the
+    same observations and hook outputs: arm_yaw and stop exactly, angular,
+    linear, rho and theta within 1e-4 (PointNav's tolerance card against
+    CPU), the grids within the cone-edge allowance, the same frontiers,
+    the object map's slots."""
+    from vlfm_tpu_torch.policy import reality as R
+    from vlfm_tpu_torch.reality.envs import ObjectNavEnv, RealityEnvConfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = TCONFIG.VLFMConfig(max_frontiers=16, max_frontier_cells=256, object_map_slots=8,
+                             object_map_points_per_slot=128)
+    spec = GridSpec2D(256, 20, 160)
+    cpu_pn = PN.PointNavPolicy.init_random(0, discrete=False, device="cpu") if controller == "neural" else "greedy"
+    gpu_pn = PN.PointNavPolicy(copy.deepcopy(cpu_pn.module).to(dev)) if controller == "neural" else "greedy"
+    policies = {"cpu": R.RealityITMPolicyV2(spec, cfg, pointnav=cpu_pn, device="cpu", **_reality_hooks()),
+                dev: R.RealityITMPolicyV2(spec, cfg, pointnav=gpu_pn, device=dev, **_reality_hooks())}
+    env = ObjectNavEnv(_open_space_robot(), RealityEnvConfig(all_cams_until_step=10))
+    obs = env.reset("toilet")
+    for _ in range(R.NUM_INIT_YAWS + 12):
+        want, got = policies["cpu"].get_action(obs), policies[dev].get_action(obs)
+        assert got["arm_yaw"] == want["arm_yaw"] and got["stop"] == want["stop"]
+        np.testing.assert_allclose([got["angular"], got["linear"], *got["rho_theta"]],
+                                   [want["angular"], want["linear"], *want["rho_theta"]], atol=1e-4, rtol=0)
+        obs = env.step(want)
+    got, want = policies[dev].state, policies["cpu"].state
+    cells = 1e-3 * (R.NUM_INIT_YAWS + 12) * 6 * 288 * 288
+    for name in ("obstacles", "navigable", "explored"):
+        assert int((getattr(got.obstacle, name).cpu() != getattr(want.obstacle, name)).sum()) <= cells, name
+    assert torch.equal(got.obstacle.frontiers_valid.cpu(), want.obstacle.frontiers_valid)
+    torch.testing.assert_close(got.obstacle.frontiers_xy.cpu(), want.obstacle.frontiers_xy, atol=0.1, rtol=0)
+    for name in ("slot_used", "cursor", "has_last_target"):
+        assert torch.equal(getattr(got.objmap, name).cpu(), getattr(want.objmap, name)), name
+    assert bool(want.objmap.slot_used.any())
+
+
+def test_checkpoint_round_trips_a_cuda_state(dev, tmp_path):
+    """A robot state on the card saved and restored: bit for bit, each
+    tensor on the device and with the dtype of ``like``."""
+    from vlfm_tpu_torch.policy import reality as R
+    from vlfm_tpu_torch.runner.checkpoint import map_tensors, restore_pytree, save_pytree
+
+    cfg = TCONFIG.VLFMConfig(max_frontiers=16, object_map_slots=8, object_map_points_per_slot=128)
+    spec = GridSpec2D(256, 20, 160)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def fill(t):
+        if t.dtype == torch.bool:
+            return torch.rand(t.shape, generator=gen, device=dev) < 0.5
+        if t.is_floating_point():
+            return torch.randn(t.shape, generator=gen, device=dev)
+        return torch.randint(0, 1 << 30, t.shape, generator=gen, device=dev).to(t.dtype)
+
+    state = map_tensors(fill, R.create_state(spec, cfg, device=dev))
+    path = save_pytree(str(tmp_path / "robot.pt"), {"state": state, "rng": T.PRNGKey(7, device=dev)})
+    got = restore_pytree(path, {"state": R.create_state(spec, cfg, device=dev), "rng": T.PRNGKey(0, device=dev)})
+    flat_got, flat_want = [], []
+    map_tensors(flat_got.append, got["state"])
+    map_tensors(flat_want.append, state)
+    assert all(g.is_cuda and g.dtype == w.dtype and torch.equal(g, w) for g, w in zip(flat_got, flat_want))
+    assert torch.equal(got["rng"], T.PRNGKey(7, device=dev))
+    on_cpu = restore_pytree(path, {"state": R.create_state(spec, cfg, device="cpu"), "rng": T.PRNGKey(0, device="cpu")})
+    assert torch.equal(on_cpu["state"].value.values, state.value.values.cpu())

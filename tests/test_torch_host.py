@@ -227,12 +227,15 @@ def test_chip_smoke_and_profile_script_import_nothing_of_jax():
         "mods = sorted(m.name for m in pkgutil.walk_packages(vlfm_tpu_torch.__path__, 'vlfm_tpu_torch.'))\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "for m in ('vlfm_tpu_torch.run', 'vlfm_tpu_torch.runner.imitation', 'vlfm_tpu_torch.adapters.habitat'):\n"
+        "for m in ('vlfm_tpu_torch.run', 'vlfm_tpu_torch.runner.imitation', 'vlfm_tpu_torch.adapters.habitat',\n"
+        "          'vlfm_tpu_torch.reality.robots', 'vlfm_tpu_torch.reality.envs', 'vlfm_tpu_torch.policy.reality',\n"
+        "          'vlfm_tpu_torch.runner.checkpoint', 'vlfm_tpu_torch.mapping.value_map_io',\n"
+        "          'vlfm_tpu_torch.utils.profiling'):\n"
         "    assert m in mods, m\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"
         "import profile_torch_step\n"
-        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'vlfm_tpu'))\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'vlfm_tpu'))\n"
         "assert not bad, bad\n"
         "print(len(mods))\n"
     )

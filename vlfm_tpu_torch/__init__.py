@@ -23,14 +23,18 @@ the VQA veto and ZoeDepth; and the evaluation entry points
 (``python -m vlfm_tpu_torch.run``, ``runner/demo.py``, the
 Habitat-protocol loop of ``adapters/habitat.py`` and
 ``runner/habitat_eval.py``) with PointNav's behaviour cloning
-(``runner/imitation.py``). Entry points put their tensors on the card
+(``runner/imitation.py``); the robot path (``reality/robots.py``,
+``reality/envs.py``, ``policy/reality.py``) with mid-episode checkpoints
+(``runner/checkpoint.py``), value-map record and replay
+(``mapping/value_map_io.py``) and step timers (``utils/profiling.py``).
+Entry points put their tensors on the card
 unless the caller passes ``device="cpu"`` (``device.py``; ``--cpu`` on the
 command lines). The package imports neither jax nor ``vlfm_tpu``: the host
 modules it needs (``config``, ``models.tokenizer``,
 ``models.coco_classes``, ``runner.fake_env``, ``runner.metrics``,
 ``utils.measurements``, ``runner.log_saver``, ``runner.analyze_logs``,
 ``utils.visualization``, ``utils.video``, ``policy.action_replay``,
-``policy.oracle_fbe``) are its own copies, and the ring's C++ source,
+``policy.oracle_fbe``, ``reality.robots``, ``reality.envs``) are its own copies, and the ring's C++ source,
 ``native/obsring.cpp``, is built by the port's own compile step.
 """
 

@@ -12,7 +12,10 @@ runs on the card, or on the CPU with ``--cpu``. Backends:
 - ``--backend habitat``: needs habitat-lab; builds a habitat env and
   drives it through ``HabitatVLFMAgent`` over ``FullStackPerception``
   (tiny random models) in ``runner/habitat_eval.evaluate``.
-- ``--backend reality``: needs the Spot SDK; not in this package.
+- ``--backend reality``: needs the Spot SDK, so it exits with a message, as
+  JAX's does: the robot path is ``reality/envs.ObjectNavEnv`` over a
+  ``BDSWRobot`` (``FakeRobot`` for dry runs) driven by
+  ``policy/reality.RealityITMPolicyV2``.
 
 ``--pointnav-weights`` loads the reference's PointNav checkpoint (a
 ``.pth`` with the upstream parameter names) as it is. ``--weights-dir``
@@ -83,8 +86,10 @@ def main() -> None:
         )
     if args.backend == "reality":
         raise SystemExit(
-            "reality backend requires the Boston Dynamics SDK and the reality "
-            "path, which vlfm_tpu_torch does not have yet; see vlfm_tpu/reality/"
+            "reality backend requires the Boston Dynamics SDK; construct "
+            "vlfm_tpu_torch.reality.envs.ObjectNavEnv with a BDSWRobot and drive "
+            "it with vlfm_tpu_torch.policy.reality.RealityITMPolicyV2 (see "
+            "vlfm_tpu_torch/reality/) — FakeRobot works for dry runs"
         )
 
     from vlfm_tpu_torch.config import VLFMConfig, load_config
