@@ -179,7 +179,25 @@ Phases (any failure raises, and the script exits non-zero):
      against the same updates on the card; one get_action timed with and
      without a detection (wall, device, idle, launches, syncs;
      ``utils/profiling.StepTimer``) and by part (perception, ZoeD_NK, the
-     six obstacle updates, the rest of ``reality_step``).
+     six obstacle updates, the rest of ``reality_step``);
+ 26. the port's last modules: (a) the tiny ViT-det SAM (``SamConfig.tiny()``
+     and ``tiny_sam_config()``), the same f32 weights on the CPU and on
+     the card: embeddings, mask logits and iou, masks away from 0 with
+     multimask output off and on, gated equal to ungated, no kernel
+     launched; (b) sam-vit-base at full width (``SamConfig()``: the
+     ViT-det encoder at 1024 px, 93.7 M parameters, random weights from
+     seed 0 under ``cast_for_serving``): phase 11's pipeline on the 8 spin
+     frames with it in place of MobileSAM (K1 counted, K2 must stay 0),
+     gated at capacity 2 against ungated, each lane at B=8 against its
+     B=1 run, and the encoder timed at B=1 and B=8 (wall, device, idle,
+     launches, peak device memory); (c) phase 19's full-width PointNav at
+     B=8 with ``deterministic=False``, both heads, 16 keys: the card's
+     gumbel and normal draws bit-equal to the CPU's, the sampled actions
+     equal off near ties (discrete) or within PN_ATOL scaled by the draw
+     (continuous); (d) ``evaluate_semexp`` over ``FakeSemExpVecEnv``, one
+     16-step episode with phase 24's agent and phase 20's models; (e)
+     phase 20's oracle farm with ``sharding=episode_sharding(make_mesh(1))``
+     equal to the unsharded farm field for field.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -204,6 +222,7 @@ import torch
 import torch.nn.functional as F
 
 from vlfm_tpu_torch.adapters.habitat import HabitatVLFMAgent
+from vlfm_tpu_torch.adapters.semexp import FakeSemExpVecEnv, SemExpVLFMAgent, evaluate_semexp
 from vlfm_tpu_torch.config import VLFMConfig
 from vlfm_tpu_torch.kernels.build import load_library
 from vlfm_tpu_torch.mapping import object_map as OBJ
@@ -228,7 +247,7 @@ from vlfm_tpu_torch.models.grounding_dino import (
 )
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
 from vlfm_tpu_torch.models.precision import cast_for_serving, exact_f32
-from vlfm_tpu_torch.models.sam import SAM, SamConfig
+from vlfm_tpu_torch.models.sam import SAM, SamConfig, SamVisionEncoder
 from vlfm_tpu_torch.models.tinyvit import chain_launches
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_ref, attention_tolerance, qkv_views
@@ -240,7 +259,8 @@ from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline, VQAVeto
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
-from vlfm_tpu_torch.models.pointnav import PointNavPolicy
+from vlfm_tpu_torch.models.pointnav import PointNavPolicy, PointNavState
+from vlfm_tpu_torch.parallel.mesh import episode_sharding, make_mesh
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.policy import reality as REAL
 from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
@@ -253,7 +273,7 @@ from vlfm_tpu_torch.runner.analyze_logs import load_logs, summarize
 from vlfm_tpu_torch.runner.checkpoint import map_tensors, restore_pytree, save_pytree
 from vlfm_tpu_torch.runner.episode_driver import read_back, run_episode, run_episodes_recycled, step_inputs
 from vlfm_tpu_torch.runner.fake_env import EnvConfig, FakeObjectNavEnv, open_room_plan, two_room_plan
-from vlfm_tpu_torch.runner.full_stack import FullStackPerception
+from vlfm_tpu_torch.runner.full_stack import FullStackPerception, tiny_sam_config
 from vlfm_tpu_torch.runner.habitat_eval import FakeHabitatEnv, evaluate
 from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
 from vlfm_tpu_torch.utils.geometry import rho_theta, xyz_yaw_to_tf_matrix
@@ -458,6 +478,12 @@ REALITY_FRONTIER_ATOL_M = 1e-6  # where the step's grids agree bit for bit (else
 REALITY_VALUE_ATOL = 1e-5  # the value map: a step's replay, and a recording's replay (cone-edge cells aside)
 REALITY_CKPT_ATOL = 1e-6  # the resumed run against the live one, should cuDNN break bit-equality
 REALITY_CELLS = 6 * 288 * 288  # cells a step's six obstacle updates may touch (the flip allowance's base)
+# phase 26
+TINY_VITDET_RTOL = 1e-4  # tiny ViT-det SAM, f32, card against CPU: of the largest entry (iou absolute)
+TINY_VITDET_MARGIN = 1e-3  # masks compared where |logit| exceeds this share of the largest
+VITDET_LANE_RTOL = 1e-4  # sam-vit-base, a lane at B=8 against B=1 (f32 compute; cuBLAS tiles per batch)
+STOCHASTIC_KEYS = 16
+SEMEXP_STEPS = 16
 
 
 def log(msg: str) -> None:
@@ -1893,7 +1919,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
             f"and gated SAM per dispatch: all finished, successes {sum(r.success for r in res)}, steps "
             f"{[r.steps for r in res]}, detected {sum(r.target_detected for r in res)}; frames with a detection "
             f"{sum(int(f) for f in counter.frames)}; {farm_summary(fstats)}; on {smi}")
-    return launches
+    return launches, oracle
 
 
 # --- phase 21 ----------------------------------------------------------------
@@ -2748,6 +2774,229 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
     return launches
 
 
+# --- phase 26 ----------------------------------------------------------------
+def phase_tiny_vitdet() -> None:
+    """(a) The tiny ViT-det SAM (``SamConfig.tiny()`` and ``tiny_sam_config``):
+    the same f32 weights on the CPU and on the card give the same
+    embeddings, iou and masks, ungated, gated and with multimask output."""
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (5, 64, 64, 3)).astype(np.float32))
+    lo = rng.uniform(0.0, 0.5, (5, 2, 2))
+    boxes = torch.from_numpy(np.concatenate([lo, np.minimum(lo + rng.uniform(0.1, 0.5, (5, 2, 2)), 1.0)], -1)
+                             .astype(np.float32))
+    valid = torch.tensor([[1, 0], [0, 0], [1, 1], [0, 1], [1, 0]], dtype=torch.bool)
+    for name, scfg in (("SamConfig.tiny()", SamConfig.tiny()), ("tiny_sam_config()", tiny_sam_config())):
+        cpu = SAM.init_random(scfg, seed=0, device="cpu")
+        gpu = SAM(cpu.cfg, copy.deepcopy(cpu.module).to(DEV))
+        k1, k2, k3 = layer_norm.launches, mbconv_chain.launches, attention.launches
+        emb_c, emb_g = cpu.encode(imgs), gpu.encode(imgs.to(DEV)).cpu()
+        with torch.no_grad():
+            lc, ic = cpu.module.decode_boxes(emb_c, boxes)
+            lg, ig = gpu.module.decode_boxes(emb_g.to(DEV), boxes.to(DEV))
+        emb_err = float((emb_g - emb_c).abs().max() / emb_c.abs().max())
+        logit_err = float((lg.cpu() - lc).abs().max() / lc.abs().max())
+        iou_err = float((ig.cpu() - ic).abs().max())
+        far = lc.abs() > TINY_VITDET_MARGIN * lc.abs().max()
+        flips = []
+        for multimask in (False, True):
+            mc, _ = cpu.segment_boxes(imgs, boxes, multimask)
+            mg, _ = gpu.segment_boxes(imgs.to(DEV), boxes.to(DEV), multimask)
+            gated, _ = gpu.segment_boxes_gated(imgs.to(DEV), boxes.to(DEV), valid.to(DEV), 2, multimask)
+            has = valid.any(1)
+            best = torch.argmax(ic[..., 1:], dim=-1) + 1 if multimask else torch.zeros_like(ic[..., 0], dtype=torch.long)
+            sel = torch.take_along_dim(far, best[..., None, None, None], dim=2)[:, :, 0]
+            flips.append(float((mg.cpu() != mc)[sel].float().mean()))
+            check(torch.equal(gated.cpu()[has], mg.cpu()[has]), f"tiny ViT-det {name}: gated differs from ungated")
+        launched = (layer_norm.launches - k1, mbconv_chain.launches - k2, attention.launches - k3)
+        log(f"[tiny-vitdet] {name}: card vs CPU embeddings {emb_err:.2e} of the largest entry, mask logits "
+            f"{logit_err:.2e}, iou {iou_err:.2e} (tol {TINY_VITDET_RTOL}); masks away from 0 flip {flips} "
+            f"(multimask off, on; tol 0); gated equals ungated on the card; K1, K2, K3 launches {launched}")
+        check(max(emb_err, logit_err) <= TINY_VITDET_RTOL and iou_err <= TINY_VITDET_RTOL,
+              f"tiny ViT-det {name}: card and CPU differ")
+        check(max(flips) == 0.0, f"tiny ViT-det {name}: masks away from 0 differ between card and CPU")
+        check(launched == (0, 0, 0), f"tiny ViT-det {name}: the encoder launched a kernel")
+
+
+def encode_timing(label: str, fn, smi: str) -> dict:
+    """Wall (median of 5), device time and idle share (torch.profiler),
+    launches and the peak of device memory above what was held before."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    kernels, copies, busy, wall = launch_profile(fn)
+    r = dict(ms=wall_ms(fn, reps=5, warmup=1), device_ms=busy, idle=1 - busy / wall, kernels=kernels,
+             copies=copies, peak_gib=peak / 2**30)
+    log(f"[vitdet-time] {label}: {r['ms']:.2f} ms wall (median of 5); under the profiler {busy:.2f} ms of device "
+        f"time, idle share {r['idle']:.3f}; {kernels} kernel launches + {copies} copies/sets; peak device memory "
+        f"{r['peak_gib']:.2f} GiB above the {held / 2**30:.2f} GiB held; on {smi}")
+    return r
+
+
+def phase_vitdet(det_cfg, det, rgb, smi: str) -> dict:
+    """(b) sam-vit-base at full width: ``SamConfig()`` at 1024 px with random
+    weights from seed 0 under ``cast_for_serving``, on phase 11's 8 spin
+    frames with phase 11's pipeline around it."""
+    sam = SAM.init_random(SamConfig(), seed=0, device=DEV)
+    cast_for_serving(sam.module)
+    n = sum(p.numel() for p in sam.module.parameters())
+    n_enc = sum(p.numel() for p in sam.module.vision.parameters())
+    log(f"[vitdet] sam-vit-base (ViT-det, 12 blocks at width 768, global attention at 2, 5, 8, 11, 1024 px): "
+        f"{n / 1e6:.2f} M parameters ({n_enc / 1e6:.2f} M in the encoder), bf16 weights, f32 compute")
+    check(isinstance(sam.module.vision, SamVisionEncoder) and round(n / 1e6, 1) == 93.7,
+          "SamConfig() is not sam-vit-base's ViT-det")
+    b, h, w = rgb.shape[:3]
+    k, cap = det_cfg.max_detections_per_frame, det_cfg.sam_frame_capacity
+    # Phase 11's pipeline with ViT-det in place of MobileSAM: both routes
+    # for the COCO target, then the open-vocabulary route at threshold 0
+    # (every frame holds a detection), gated at capacity 2.
+    layer_norm.launches = mbconv_chain.launches = attention.launches = 0
+    out_coco = make_pipeline(det, sam, det_cfg, cap)(rgb, COCO_TARGET)
+    out_open = make_pipeline(det, sam, det_cfg, cap, non_coco_threshold=0.0)(rgb, OPEN_TARGET)
+    torch.cuda.synchronize()
+    launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches,
+                    attention=attention.launches)
+    frames_coco = check_detections(COCO_TARGET, out_coco, b, h, w, k)
+    frames_open = check_detections(OPEN_TARGET, out_open, b, h, w, k)
+    log(f"[vitdet] phase 11's pipeline with ViT-det SAM: {COCO_TARGET} {int(out_coco[1].sum())} detections on "
+        f"{frames_coco} frames, {OPEN_TARGET} at threshold 0 {int(out_open[1].sum())} on {frames_open}; "
+        f"K1 {launches['layer_norm']} (expect {3 * LAUNCHES_DETECT}, OWL-ViT's), K2 {launches['mbconv_chain']} "
+        f"(expect 0: no TinyViT), K3 {launches['attention']}")
+    check(launches["layer_norm"] == 3 * LAUNCHES_DETECT, "ViT-det pipeline K1 launch count")
+    check(launches["mbconv_chain"] == 0, "the ViT-det pipeline launched K2: the encoder was not swapped")
+    check(frames_open == b, "threshold 0 must put detections on every frame")
+    ungated = make_pipeline(det, sam, det_cfg, None, non_coco_threshold=0.0)(rgb, OPEN_TARGET)
+    gm, gv, (xyxy, _, _) = out_open
+    um, uv, _ = ungated
+    check(torch.equal(gv, uv), "ViT-det gated and ungated validity differ")
+    flips = float((gm != um)[gv].float().mean())
+    log(f"[vitdet] gated (capacity {cap}) against ungated masks on valid slots at B={b}: {flips:.2e} of pixels "
+        f"flip (tol {GATED_MASK_FLIPS})")
+    check(flips <= GATED_MASK_FLIPS, "ViT-det gated masks differ from ungated masks")
+
+    # Each lane at B=8 against its own B=1 run: embeddings, iou, masks.
+    imgs, boxes = resize_bilinear(rgb.to(torch.float32), 1024, 1024), xyxy
+    emb8 = sam.encode(imgs)
+    check(emb8.shape == (b, 64, 64, 256) and emb8.dtype == torch.float32 and bool(torch.isfinite(emb8).all()),
+          "sam-vit-base embeddings: shape, dtype, finite")
+    m8, iou8 = sam.decode(emb8, boxes)
+    emb_err = iou_err = lane_flips = 0.0
+    for lane in range(b):
+        e1 = sam.encode(imgs[lane:lane + 1])
+        m1, iou1 = sam.decode(e1, boxes[lane:lane + 1])
+        emb_err = max(emb_err, float((e1[0] - emb8[lane]).abs().max() / emb8[lane].abs().max()))
+        iou_err = max(iou_err, float((iou1[0] - iou8[lane]).abs().max()))
+        lane_flips = max(lane_flips, float((m1[0] != m8[lane]).float().mean()))
+    log(f"[vitdet] each lane at B={b} against its B=1 run: embeddings within {emb_err:.2e} of the largest entry, "
+        f"iou within {iou_err:.2e} (tol {VITDET_LANE_RTOL}), masks flip {lane_flips:.2e} of pixels "
+        f"(tol {GATED_MASK_FLIPS})")
+    check(emb_err <= VITDET_LANE_RTOL and iou_err <= VITDET_LANE_RTOL, "ViT-det lanes differ from their B=1 runs")
+    check(lane_flips <= GATED_MASK_FLIPS, "ViT-det lane masks differ from their B=1 runs")
+    del emb8, m8
+    for lanes in (1, b):
+        x = imgs[:lanes]
+        encode_timing(f"B={lanes} sam-vit-base encode (1024 px, f32 compute)", lambda: sam.encode(x), smi)
+    return launches
+
+
+def phase_stochastic_pointnav(smi: str) -> None:
+    """(c) Phase 19's full-width PointNav at B=8 with ``deterministic=False``:
+    for 16 keys the card's draws equal the CPU's on the same inputs."""
+    b = BATCH_LANES
+    rng = np.random.default_rng(0)
+    depth = torch.from_numpy(rng.uniform(0, 1, (b, 224, 224)).astype(np.float32))
+    goal = torch.from_numpy(np.stack([rng.uniform(0.2, 5, b), rng.uniform(-np.pi, np.pi, b)], 1).astype(np.float32))
+    for discrete in (True, False):
+        gpu = PointNavPolicy.init_random(seed=0, depth_shape=(224, 224), discrete=discrete, device=DEV)
+        cpu = PointNavPolicy(copy.deepcopy(gpu.module).cpu())
+        state = PointNavState(h=torch.from_numpy(rng.normal(size=(2, b, 512)).astype(np.float32)),
+                              c=torch.from_numpy(rng.normal(size=(2, b, 512)).astype(np.float32)),
+                              prev_action=torch.zeros(b, 1 if discrete else 2),
+                              not_done=torch.ones(b, 1, dtype=torch.bool))
+        gstate = PointNavState(*(t.to(DEV) for t in state))
+        equal = near = 0
+        err = 0.0
+        for key in range(STOCHASTIC_KEYS):
+            ga, gs = gpu.act(depth.to(DEV), goal.to(DEV), gstate, deterministic=False,
+                             rng=threefry.PRNGKey(key, device=DEV))
+            ca, cs = cpu.act(depth, goal, state, deterministic=False, rng=threefry.PRNGKey(key, device="cpu"))
+            shape = (b, 4) if discrete else (b, 2)
+            draw = threefry.gumbel if discrete else threefry.normal
+            gd, cd = draw(threefry.PRNGKey(key, device=DEV), shape).cpu(), draw(threefry.PRNGKey(key, device="cpu"),
+                                                                                 shape)
+            check(torch.equal(gd.view(torch.int32), cd.view(torch.int32)), f"key {key}: the draws differ in bits")
+            if discrete:
+                scores = cd + cpu.logits(cs)  # the CPU's gumbel-max scores
+                top = torch.topk(scores, 2, dim=-1).values
+                tie = (top[:, 0] - top[:, 1]) <= 2 * PN_ATOL
+                near += int(tie.sum())
+                same = ga.cpu()[:, 0] == ca[:, 0]
+                check(bool(same[~tie].all()), f"key {key}: the card's categorical draws differ off near ties")
+                equal += int(same.sum())
+            else:
+                with torch.no_grad():
+                    _, std = cpu.module.action_distribution(cs.h[-1])
+                # mu and std hold to PN_ATOL as phase 19's heads do; the draw scales std's share
+                tol = PN_ATOL * (1.0 + std * cd.abs())
+                err = max(err, float(((ga.cpu() - ca).abs() / tol).max()))
+        if discrete:
+            log(f"[pointnav-draw] discrete head, B={b} at 224x224, {STOCHASTIC_KEYS} keys: the gumbel draws are "
+                f"bit-equal on the card and the CPU (0 ulps); {equal} of {b * STOCHASTIC_KEYS} sampled actions "
+                f"equal, {near} near ties (top two within {2 * PN_ATOL}) exempt; on {smi}")
+        else:
+            log(f"[pointnav-draw] continuous head, B={b}, {STOCHASTIC_KEYS} keys: the normal draws are bit-equal "
+                f"(0 ulps); mu + std * draw within {err:.3f} of its tolerance PN_ATOL * (1 + std * |draw|) of the "
+                f"CPU's; on {smi}")
+            check(err <= 1.0, "the card's continuous draws differ from the CPU's")
+
+
+def phase_semexp(engine: PerceptionEngine, det, sam, pointnav, smi: str) -> dict:
+    """(d) ``evaluate_semexp`` over ``FakeSemExpVecEnv``: one short episode
+    with phase 24's agent (the full stack at full width, B=1)."""
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY)
+    spec = GridSpec2D(cfg.map_size, cfg.pixels_per_meter, cfg.map_pad)
+    perception = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam,
+                                     det_threshold=cfg.non_coco_threshold, device=DEV)
+    agent = SemExpVLFMAgent(cfg, spec, pointnav, perception, device=DEV)
+    envs = FakeSemExpVecEnv(lambda i: FakeObjectNavEnv(two_room_plan(seed=i), EnvConfig(max_steps=SEMEXP_STEPS)), 1,
+                            goal_name=HABITAT_TARGET)
+    with tempfile.TemporaryDirectory() as tmp:
+        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        t0 = time.perf_counter()
+        results = evaluate_semexp(envs, agent, 1, max_episode_length=SEMEXP_STEPS + 1, log_dir=tmp, print_fn=log)
+        wall = time.perf_counter() - t0
+        logged = sorted(os.listdir(tmp))
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    check(len(results) == 1 and len(logged) == 1, "evaluate_semexp lost its episode or its log")
+    r = results[0]
+    check(all(math.isfinite(r[key]) for key in ("success", "spl", "distance_to_goal")), "SemExp metrics finite")
+    log(f"[semexp] evaluate_semexp over FakeSemExpVecEnv (two_room_plan, at most {SEMEXP_STEPS} steps, v2, "
+        f"phase 24's agent): {r}; {wall:.2f} s; K1 {launches['layer_norm']}, K2 {launches['mbconv_chain']}, "
+        f"K3 {launches['attention']} launches; on {smi}")
+    return launches
+
+
+def phase_sharded_farm(spec, oracle: dict, smi: str) -> None:
+    """(e) Phase 20's oracle-fed farm with ``sharding=`` over a one-device
+    mesh equals the unsharded farm field for field."""
+    cfg = VLFMConfig()
+    mesh = make_mesh(1)
+    check(mesh.shape == {"data": 1, "model": 1} and mesh.data_devices() == [DEV], "the one-card mesh")
+    seeds = list(range(FARM_EPISODES))
+    res, stats = run_episodes_farm(seeds, lanes=BATCH_LANES, pointnav="greedy", spec=spec, cfg=cfg,
+                                   plan_name="open_room_plan", env_cfg=EnvConfig(), workers=FARM_WORKERS,
+                                   max_steps=EPISODE_STEPS, sharding=episode_sharding(mesh))
+    check(set(res) == set(oracle), "the sharded farm lost an episode")
+    for seed in seeds:
+        check(dataclasses.asdict(res[seed]) == dataclasses.asdict(oracle[seed]),
+              f"sharded farm seed {seed}: {res[seed]} against the unsharded farm's {oracle[seed]}")
+    log(f"[mesh] the oracle farm with sharding=episode_sharding(make_mesh(1)) (unpacked transport, one dispatch "
+        f"per data device) equals phase 20's unsharded farm field for field over {FARM_EPISODES} episodes; "
+        f"{farm_summary(stats)}; on {smi}")
+
+
 def farm_summary(stats) -> str:
     return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
             f"{stats.dispatches} dispatches, "
@@ -2833,7 +3082,7 @@ def main() -> None:
     lap("18 object map")
     episodes_run, recycled = phase_batched_episodes(engine, spec, cfg, smi)
     lap("19 batched episodes")
-    full_stack_run = phase_full_stack(engine, det, sam, spec, recycled, smi)
+    full_stack_run, oracle_farm = phase_full_stack(engine, det, sam, spec, recycled, smi)
     lap("20 full stack, farm")
 
     phase_tiny_vqa()
@@ -2857,7 +3106,14 @@ def main() -> None:
     lap("24 Habitat-protocol loop, CLIs")
     reality_run = phase_reality(engine, det, sam, zoe, smi)
     lap("25 robot path")
-    del engine, det, sam, zoe
+    del zoe
+    phase_tiny_vitdet()
+    vitdet_run = phase_vitdet(det_cfg, det, rgb, smi)
+    phase_stochastic_pointnav(smi)
+    semexp_run = phase_semexp(engine, det, sam, fitted, smi)
+    phase_sharded_farm(spec, oracle_farm, smi)
+    lap("26 ViT-det SAM, stochastic PointNav, SemExp, mesh")
+    del engine, det, sam
     log("[phase-time] " + "; ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
 
@@ -2879,6 +3135,10 @@ def main() -> None:
           "the Habitat-protocol loop launched no K1, K2 or K3")
     check(all(reality_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the robot path launched no K1, K2 or K3")
+    check(vitdet_run["layer_norm"] > 0 and vitdet_run["mbconv_chain"] == 0,
+          "the ViT-det detection path launched no K1, or launched K2")
+    check(all(semexp_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the SemExp loop launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
@@ -2887,19 +3147,23 @@ def main() -> None:
                            "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
                            "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
                            "vqa_full_stack_step": vqa_stack_run["layer_norm"],
-                           "habitat_eval": habitat_run["layer_norm"], "reality": reality_run["layer_norm"]}, ln),
+                           "habitat_eval": habitat_run["layer_norm"], "reality": reality_run["layer_norm"],
+                           "vitdet_detection": vitdet_run["layer_norm"], "semexp": semexp_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],
                            "full_stack_step": full_stack_run["mbconv_chain"],
                            "vqa_full_stack_step": vqa_stack_run["mbconv_chain"],
-                           "habitat_eval": habitat_run["mbconv_chain"], "reality": reality_run["mbconv_chain"]}, k2),
+                           "habitat_eval": habitat_run["mbconv_chain"], "reality": reality_run["mbconv_chain"],
+                           "vitdet_detection": vitdet_run["mbconv_chain"], "semexp": semexp_run["mbconv_chain"]},
+                          k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
                            "decision_step": episodes_run["attention"],
                            "full_stack_step": full_stack_run["attention"], "vqa_veto": veto_run["attention"],
                            "vqa_full_stack_step": vqa_stack_run["attention"],
-                           "habitat_eval": habitat_run["attention"], "reality": reality_run["attention"]}, k3),
+                           "habitat_eval": habitat_run["attention"], "reality": reality_run["attention"],
+                           "vitdet_detection": vitdet_run["attention"], "semexp": semexp_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

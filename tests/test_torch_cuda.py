@@ -880,3 +880,35 @@ def test_checkpoint_round_trips_a_cuda_state(dev, tmp_path):
     assert torch.equal(got["rng"], T.PRNGKey(7, device=dev))
     on_cpu = restore_pytree(path, {"state": R.create_state(spec, cfg, device="cpu"), "rng": T.PRNGKey(0, device="cpu")})
     assert torch.equal(on_cpu["state"].value.values, state.value.values.cpu())
+
+
+@pytest.mark.parametrize("name", ["gumbel", "normal", "uniform"])
+def test_threefry_draws_on_the_card_equal_the_cpus_bits(dev, name):
+    """The restated XLA log / erf_inv are IEEE operations one by one, so
+    the card draws the CPU's bits (and so jax's)."""
+    for seed in (0, 7, 2**31 - 1):
+        for shape in ((8, 4), (1000,), (3, 5, 7)):
+            fn = (lambda k, s: T.uniform(k, s, -2.5, 3.7)) if name == "uniform" else getattr(T, name)
+            got = fn(T.PRNGKey(seed, device=dev), shape).cpu()
+            want = fn(T.PRNGKey(seed, device="cpu"), shape)
+            assert torch.equal(got.view(torch.int32), want.view(torch.int32)), (seed, shape)
+
+
+@pytest.mark.parametrize("multimask", [False, True])
+def test_tiny_vitdet_sam_card_matches_cpu(dev, multimask):
+    cpu = SAM.init_random(SamConfig.tiny(), seed=0, device="cpu")
+    gpu = SAM(cpu.cfg, copy.deepcopy(cpu.module).to(dev))
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 255, (3, 64, 64, 3)).astype(np.float32))
+    boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7]], [[0.3, 0.2, 0.9, 0.9]], [[0.0, 0.0, 1.0, 1.0]]])
+    emb_c, emb_g = cpu.encode(imgs), gpu.encode(imgs.to(dev)).cpu()
+    assert float((emb_g - emb_c).abs().max()) <= 1e-4 * float(emb_c.abs().max())
+    with torch.no_grad():
+        lc, ic = cpu.module.decode_boxes(emb_c, boxes)
+    mc, _ = cpu.segment_boxes(imgs, boxes, multimask)
+    mg, ig = gpu.segment_boxes(imgs.to(dev), boxes.to(dev), multimask)
+    assert float((ig.cpu() - ic).abs().max()) <= 1e-4
+    best = torch.argmax(ic[..., 1:], -1) + 1 if multimask else torch.zeros_like(ic[..., 0], dtype=torch.long)
+    sel = torch.take_along_dim(lc, best[..., None, None, None], dim=2)[:, :, 0]
+    far = sel.abs() > 1e-3 * float(lc.abs().max())
+    assert torch.equal(mg.cpu()[far], mc[far])

@@ -10,10 +10,12 @@ import inspect
 import pytest
 import torch
 
+from vlfm_tpu_torch.adapters.semexp import SemExpVLFMAgent
 from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.mapping import object_map, obstacle_map, value_map
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM
+from vlfm_tpu_torch.models import detections
 from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA
 from vlfm_tpu_torch.models.grounding_dino import GroundingDinoDetector
 from vlfm_tpu_torch.models.monodepth import MonocularDepth
@@ -47,6 +49,9 @@ CONSTRUCTORS = {
     "threefry.PRNGKey": threefry.PRNGKey,
     "acyclic.create": acyclic.create,
     "GridSpec2D.zeros": GridSpec2D.zeros,
+    "detections.empty": detections.empty,
+    "detections.from_json": detections.from_json,
+    "SemExpVLFMAgent": SemExpVLFMAgent.__init__,
 }
 
 

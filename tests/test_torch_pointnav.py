@@ -29,6 +29,7 @@ from vlfm_tpu.models import pointnav as JPN
 from vlfm_tpu.models.torch_import import convert_torch_state_dict
 from tests.test_torch_step import one_torch_thread  # noqa: F401
 from vlfm_tpu_torch.models import pointnav as PN
+from vlfm_tpu_torch.ops import threefry as T
 
 PN_ATOL = 1e-4
 
@@ -182,11 +183,19 @@ def test_reset_episodes_matches_jax():
 
 
 def test_stochastic_heads_are_not_ported():
+    """The stochastic heads are ported now (tests/test_torch_pointnav_stochastic.py
+    holds them to JAX): ``deterministic=False`` draws with the key it is
+    given, a valid action that the same key repeats, and refuses to run
+    without one."""
     tpolicy = PN.PointNavPolicy.init_random(0, device="cpu")
     depth, goal, _ = _inputs(1, (224, 224))
-    with pytest.raises(NotImplementedError, match="stochastic heads are not ported yet"):
-        tpolicy.act(torch.from_numpy(depth), torch.from_numpy(goal), PN.initial_state(1, device="cpu"),
-                     deterministic=False)
+    state = PN.initial_state(1, device="cpu")
+    with pytest.raises(ValueError, match="rng="):
+        tpolicy.act(torch.from_numpy(depth), torch.from_numpy(goal), state, deterministic=False)
+    key = T.PRNGKey(3, device="cpu")
+    a1, _ = tpolicy.act(torch.from_numpy(depth), torch.from_numpy(goal), state, deterministic=False, rng=key)
+    a2, _ = tpolicy.act(torch.from_numpy(depth), torch.from_numpy(goal), state, deterministic=False, rng=key)
+    assert torch.equal(a1, a2) and a1.shape == (1, 1) and 0 <= int(a1) < 4
 
 
 def test_init_random_is_seeded_and_finite():

@@ -202,8 +202,15 @@ def test_oracle_farm_equals_recycled_driver(recycled):
 
 
 def test_sharding_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, `parallel/mesh.py`"):
+    """``sharding=`` is ported (tests/test_torch_mesh.py holds the sharded
+    farm to the unsharded one); what is not an episode sharding of a
+    ``parallel.mesh`` still raises, before any worker starts."""
+    from vlfm_tpu_torch.parallel import mesh as M
+
+    with pytest.raises(TypeError, match="episode_sharding"):
         farm(SEEDS, sharding=object(), device="cpu")
+    with pytest.raises(TypeError, match="episode_sharding"):
+        farm(SEEDS, sharding=M.replicated(M.make_mesh(devices=["cpu"] * 2)))
 
 
 @pytest.fixture(scope="module")

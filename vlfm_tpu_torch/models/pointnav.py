@@ -12,8 +12,10 @@ One ``act`` is one recurrent step for a batch of B episodes: 2x
 average-pool, the GN ResNet-18, a 3x3 compression to 128 channels,
 ``visual_fc`` on the flattened (c, h, w) map, the goal and previous-action
 embeddings, one LSTM step (state zeroed where ``not_done`` is False) and
-the deterministic head: argmax of the 4 logits, or the tanh mean of the
-continuous head.
+the head: deterministic, the argmax of the 4 logits or the tanh mean of
+the continuous head; stochastic (``deterministic=False, rng=key``), a
+draw from ``jax.random.categorical`` or ``mu + std * jax.random.normal``
+as ``ops/threefry.py`` restates them, bit for bit.
 
 The JAX module flattens the compression output in NHWC (h, w, c) order
 (pointnav.py:91), where the reference's ``Flatten`` reads NCHW (c, h, w),
@@ -39,6 +41,7 @@ from torch import nn
 
 from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.models.precision import exact_f32
+from vlfm_tpu_torch.ops import threefry
 
 NUM_ACTIONS = 4  # STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT
 HIDDEN_SIZE = 512
@@ -333,13 +336,16 @@ class PointNavPolicy:
 
     @torch.no_grad()
     def act(self, depth: torch.Tensor, pointgoal: torch.Tensor, state: PointNavState, *,
-            deterministic: bool = True):
+            deterministic: bool = True, rng: torch.Tensor | None = None):
         """One step for B episodes: depth (B, H, W) in [0, 1], pointgoal (B, 2)
         (rho, theta). Returns ((B, 1) int64 action, or the (B, 2) continuous
-        mean; the new state)."""
-        if not deterministic:
-            raise NotImplementedError(
-                "PointNav's stochastic heads are not ported yet (their item of ROADMAP Queue 1)")
+        action; the new state). Deterministic: the argmax, or the mean.
+        Otherwise ``rng`` is one (2,) threefry key for the batch, as JAX's
+        ``act`` takes it: the discrete head draws ``categorical(rng,
+        logits)``, the continuous head ``mu + std * normal(rng, mu.shape)``,
+        and the draw is the next step's previous action."""
+        if not deterministic and rng is None:
+            raise ValueError("a stochastic act needs rng=, one (2,) threefry key")
         net = self.module.net
         mask = state.not_done
         with exact_f32(depth.device):
@@ -347,10 +353,15 @@ class PointNavPolicy:
             m = mask[None].to(feats.dtype)  # (1, B, 1) over the layers
             out, h, c = net.lstm_step(feats, state.h * m, state.c * m)
             if self.discrete:
-                action = torch.argmax(self.module.action_distribution(out), dim=-1, keepdim=True)
+                logits = self.module.action_distribution(out)
+                if deterministic:
+                    action = torch.argmax(logits, dim=-1, keepdim=True)
+                else:
+                    action = threefry.categorical(rng, logits)[:, None]
                 prev = action.to(torch.float32)
             else:
-                action, _ = self.module.action_distribution(out)
+                mu, std = self.module.action_distribution(out)
+                action = mu if deterministic else mu + std * threefry.normal(rng, tuple(mu.shape))
                 prev = action
         return action, PointNavState(h=h, c=c, prev_action=prev, not_done=torch.ones_like(mask))
 

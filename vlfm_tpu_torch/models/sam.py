@@ -1,29 +1,38 @@
-"""Promptable segmentation (MobileSAM) as batched GPU inference.
+"""Promptable segmentation (the SAM family) as batched GPU inference.
 
-Counterpart of ``vlfm_tpu/models/sam.py`` with its TinyViT encoder
-(reference: the MobileSAM server, vlfm/vlm/sam.py:24-57, one
-``segment_bbox(image, xyxy)`` call per box). The image is encoded once per
-frame and all boxes of all frames decode in one batched call; gated
-segmentation runs only the frames that hold a detection, in passes of a
-fixed frame capacity.
+Counterpart of ``vlfm_tpu/models/sam.py`` (reference: the MobileSAM
+server, vlfm/vlm/sam.py:24-57, one ``segment_bbox(image, xyxy)`` call per
+box). The image is encoded once per frame and all boxes of all frames
+decode in one batched call; gated segmentation runs only the frames that
+hold a detection, in passes of a fixed frame capacity.
+
+Two image encoders sit behind the same prompt encoder and mask decoder, as
+in JAX: the ViT-det encoder of ``facebook/sam-vit-base`` (``SamConfig()``,
+``SamConfig.tiny()``: windowed attention with decomposed relative
+positions, periodic global blocks, a conv + LayerNorm2d neck), and
+MobileSAM's TinyViT (``SamConfig.mobile_sam()``, whose conv stages run the
+K2 kernel). ``cfg.tinyvit is None`` selects ViT-det.
 
 Submodules carry the flax scope names (``vision``, ``shared_pe``,
-``prompt``, ``decoder.layer0.cross_t2i``, ...), so ``SAM.from_jax_params``
-loads a JAX tree through ``params.state_dict_from_jax_params``. Only the
-TinyViT encoder is ported; the ViT-det encoder of the JAX module is not
-(ROADMAP Queue 1).
+``prompt``, ``decoder.layer0.cross_t2i``, ``vision.block0.attn``, ...), so
+``SAM.from_jax_params`` loads a JAX tree of either encoder through
+``params.state_dict_from_jax_params``.
 
 Precision mirrors flax's promotion: the decoder runs in the embedding's
 dtype, and a norm with f32 parameters lifts a bf16 stream to f32. With
 ``cast_for_serving`` the neck's LayerNorm2d keeps an f32 scale, so the
-embedding and the decoder are f32 behind a bf16 encoder, as in JAX.
+embedding and the decoder are f32 behind a bf16 encoder, as in JAX. The
+ViT-det encoder runs in f32 throughout under ``cast_for_serving`` (its
+blocks' LayerNorms keep f32 parameters and every bf16 Dense promotes), with
+plain PyTorch LayerNorm and attention as the JAX module has them, and TF32
+off on the card.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,13 +41,21 @@ from torch import nn
 from vlfm_tpu_torch.device import default_device
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm, Norm, promoted
 from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
-from vlfm_tpu_torch.models.tinyvit import TinyViT, TinyViTConfig
+from vlfm_tpu_torch.models.precision import exact_f32
+from vlfm_tpu_torch.models.tinyvit import TinyViT, TinyViTConfig, conv_nhwc
+from vlfm_tpu_torch.ops.resize import resize_matmul
 
 
 @dataclass(frozen=True)
 class SamVisionConfig:
     image_size: int = 1024
     patch_size: int = 16
+    width: int = 768
+    depth: int = 12
+    heads: int = 12
+    mlp_dim: int = 3072
+    window_size: int = 14
+    global_attn_indexes: Tuple[int, ...] = (2, 5, 8, 11)
     out_channels: int = 256
 
     @property
@@ -63,7 +80,9 @@ class SamConfig:
     vision: SamVisionConfig = field(default_factory=SamVisionConfig)
     decoder: SamDecoderConfig = field(default_factory=SamDecoderConfig)
     pe_dim: int = 128  # half of the prompt hidden width
-    tinyvit: TinyViTConfig = field(default_factory=TinyViTConfig)
+    # MobileSAM: TinyViT in place of the ViT-det encoder; vision.image_size
+    # and out_channels must agree with it. None is sam-vit-base's ViT-det.
+    tinyvit: Optional[TinyViTConfig] = None
 
     @staticmethod
     def mobile_sam() -> "SamConfig":
@@ -87,6 +106,21 @@ class SamConfig:
             tinyvit=tv,
         )
 
+    @staticmethod
+    def tiny() -> "SamConfig":
+        """A tiny ViT-det SAM for tests: 64 px, patch 8, two blocks (the
+        second global), windows of 2."""
+        return SamConfig(
+            vision=SamVisionConfig(
+                image_size=64, patch_size=8, width=32, depth=2, heads=2,
+                mlp_dim=64, window_size=2, global_attn_indexes=(1,), out_channels=16,
+            ),
+            decoder=SamDecoderConfig(
+                hidden=16, layers=2, heads=2, mlp_dim=32, iou_head_depth=2, iou_head_hidden=16,
+            ),
+            pe_dim=8,
+        )
+
 
 class LayerNorm2d(Norm):
     """SAM's channel-wise LayerNorm over NHWC maps. It normalizes in the
@@ -103,6 +137,151 @@ class LayerNorm2d(Norm):
         var = ((x - mu) ** 2).mean(-1, keepdim=True)
         x = (x - mu) / torch.sqrt(var + 1e-6)
         return x * self.weight + self.bias
+
+
+def _interp_rel_pos(rel_pos: torch.Tensor, size: int) -> torch.Tensor:
+    """A (L, dim) relative-position table resampled to 2 * size - 1 rows,
+    as ``jax.image.resize(..., "linear")`` does it (half-pixel centres, an
+    anti-aliased kernel when it shrinks); unchanged at that length."""
+    need = 2 * size - 1
+    if rel_pos.shape[0] == need:
+        return rel_pos
+    return resize_matmul(rel_pos[:, :, None], need, rel_pos.shape[1])[:, :, 0]
+
+
+def _decomposed_rel_pos_bias(q: torch.Tensor, rel_h: torch.Tensor, rel_w: torch.Tensor,
+                             hw: Tuple[int, int]) -> torch.Tensor:
+    """ViT-det's relative position bias: q (B*, heads, h*w, dim) -> additive
+    logits (B*, heads, h*w, h*w), one term per axis."""
+    h, w = hw
+    rel_h, rel_w = _interp_rel_pos(rel_h, h), _interp_rel_pos(rel_w, w)
+    ih = torch.arange(h, device=q.device)
+    iw = torch.arange(w, device=q.device)
+    rh = rel_h[ih[:, None] - ih[None, :] + (h - 1)]  # (h, h, dim)
+    rw = rel_w[iw[:, None] - iw[None, :] + (w - 1)]  # (w, w, dim)
+    b, nh, _, dim = q.shape
+    qr = q.reshape(b, nh, h, w, dim)
+    qh, rh = promoted(qr, rh)
+    bias_h = torch.einsum("bnhwd,hkd->bnhwk", qh, rh)  # (b, nh, h, w, h)
+    qw, rw = promoted(qr, rw)
+    bias_w = torch.einsum("bnhwd,wkd->bnhwk", qw, rw)  # (b, nh, h, w, w)
+    bias = bias_h[..., :, None] + bias_w[..., None, :]  # (b, nh, h, w, h, w)
+    return bias.reshape(b, nh, h * w, h * w)
+
+
+class VitDetAttention(nn.Module):
+    """Multi-head attention with one fused qkv projection and the
+    decomposed relative-position bias. Logits in the input dtype plus the
+    bias, softmax in f32, probabilities cast back, as the JAX module (plain
+    ``jnp`` there, no kernel)."""
+
+    def __init__(self, dim: int, heads: int, hw: Tuple[int, int], *, device=None):
+        super().__init__()
+        self.heads = heads
+        self.hw = hw
+        head_dim = dim // heads
+        self.qkv = Dense(dim, 3 * dim, device=device)
+        self.proj = Dense(dim, dim, device=device)
+        self.rel_pos_h = nn.Parameter(torch.zeros(2 * hw[0] - 1, head_dim, device=device))
+        self.rel_pos_w = nn.Parameter(torch.zeros(2 * hw[1] - 1, head_dim, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, l, d = x.shape
+        hd = d // self.heads
+        q, k, v = (t.reshape(b, l, self.heads, hd).transpose(1, 2) for t in self.qkv(x).chunk(3, dim=-1))
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        bias = _decomposed_rel_pos_bias(q, self.rel_pos_h, self.rel_pos_w, self.hw)
+        logits = logits.to(torch.promote_types(logits.dtype, bias.dtype))
+        logits += bias  # in place: at 1024 px a global block's (B, 12, 4096, 4096) logits are 0.8 GB a frame
+        del bias
+        probs = torch.softmax(logits.to(torch.float32), dim=-1).to(x.dtype)
+        del logits
+        probs, v = promoted(probs, v)
+        out = torch.matmul(probs, v).transpose(1, 2).reshape(b, l, -1)
+        return self.proj(out)
+
+
+def window_partition(x: torch.Tensor, ws: int):
+    """(B, H, W, C) -> (B * nh * nw, ws, ws, C) windows of the map padded
+    with zeros up to a multiple of ``ws``, and the padded (Hp, Wp)."""
+    b, h, w, c = x.shape
+    ph, pw = (ws - h % ws) % ws, (ws - w % ws) % ws
+    x = F.pad(x, (0, 0, 0, pw, 0, ph))
+    hp, wp = h + ph, w + pw
+    x = x.reshape(b, hp // ws, ws, wp // ws, ws, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, ws, ws, c), (hp, wp)
+
+
+def window_unpartition(win: torch.Tensor, ws: int, pad_hw: Tuple[int, int], hw: Tuple[int, int]) -> torch.Tensor:
+    hp, wp = pad_hw
+    b = win.shape[0] // (hp // ws * wp // ws)
+    x = win.reshape(b, hp // ws, wp // ws, ws, ws, -1).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, hp, wp, -1)[:, : hw[0], : hw[1]]
+
+
+class VitDetBlock(nn.Module):
+    """Pre-norm block: windowed (or global) attention, then the exact-erf
+    GELU MLP. A windowed block attends over the zero padding unmasked, as
+    upstream does (64 -> 70 tokens a side at 1024 px)."""
+
+    def __init__(self, cfg: SamVisionConfig, is_global: bool, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.is_global = is_global
+        hw = (cfg.grid, cfg.grid) if is_global else (cfg.window_size, cfg.window_size)
+        self.ln1 = LayerNorm(cfg.width, 1e-6, device=device)
+        self.attn = VitDetAttention(cfg.width, cfg.heads, hw, device=device)
+        self.ln2 = LayerNorm(cfg.width, 1e-6, device=device)
+        self.mlp_fc1 = Dense(cfg.width, cfg.mlp_dim, device=device)
+        self.mlp_fc2 = Dense(cfg.mlp_dim, cfg.width, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # (B, H, W, C)
+        b, h, w, _ = x.shape
+        y = self.ln1(x)
+        if self.is_global:
+            y = self.attn(y.reshape(b, h * w, -1)).reshape(b, h, w, -1)
+        else:
+            ws = self.cfg.window_size
+            win, pad_hw = window_partition(y, ws)
+            flat = self.attn(win.reshape(win.shape[0], ws * ws, -1))
+            y = window_unpartition(flat.reshape(-1, ws, ws, flat.shape[-1]), ws, pad_hw, (h, w))
+        x = x + y
+        return x + self.mlp_fc2(F.gelu(self.mlp_fc1(self.ln2(x))))
+
+
+class _Conv(nn.Conv2d):
+    """A flax ``nn.Conv`` over NHWC maps: ``weight`` OIHW (from the flax
+    kernel HWIO), ``bias`` where flax has one."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_nhwc(x, self.weight, self.bias, self.stride[0], self.padding[0])
+
+
+class SamVisionEncoder(nn.Module):
+    """sam-vit-base's ViT-det image encoder: (B, S, S, 3) normalized images
+    -> (B, grid, grid, out_channels)."""
+
+    def __init__(self, cfg: SamVisionConfig, *, device=None):
+        super().__init__()
+        self.cfg = c = cfg
+        # flax's "SAME" padding adds nothing when the stride equals the kernel
+        self.patch_embed = _Conv(3, c.width, c.patch_size, c.patch_size, device=device)
+        self.pos_embed = nn.Parameter(torch.zeros(c.grid, c.grid, c.width, device=device))
+        for i in range(c.depth):
+            self.add_module(f"block{i}", VitDetBlock(c, i in c.global_attn_indexes, device=device))
+        self.neck_conv1 = _Conv(c.width, c.out_channels, 1, bias=False, device=device)
+        self.neck_ln1 = LayerNorm2d(c.out_channels, device=device)
+        self.neck_conv2 = _Conv(c.out_channels, c.out_channels, 3, padding=1, bias=False, device=device)
+        self.neck_ln2 = LayerNorm2d(c.out_channels, device=device)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        with exact_f32(images.device):
+            x = self.patch_embed(images)
+            x = x + self.pos_embed[None]
+            for i in range(self.cfg.depth):
+                x = getattr(self, f"block{i}")(x)
+            x = self.neck_ln1(self.neck_conv1(x))
+            return self.neck_ln2(self.neck_conv2(x))
 
 
 class SamPositionalEmbedding(nn.Module):
@@ -277,7 +456,10 @@ class SamModule(nn.Module):
         self.cfg = cfg
         if cfg.decoder.hidden != 2 * cfg.pe_dim:
             raise ValueError(f"decoder width {cfg.decoder.hidden} must be 2 * pe_dim ({cfg.pe_dim})")
-        self.vision = TinyViT(cfg.tinyvit, device=device)
+        if cfg.tinyvit is not None:
+            self.vision = TinyViT(cfg.tinyvit, device=device)
+        else:
+            self.vision = SamVisionEncoder(cfg.vision, device=device)
         self.shared_pe = SamPositionalEmbedding(cfg.pe_dim, device=device)
         self.prompt = SamPromptEncoder(cfg.decoder.hidden, device=device)
         self.decoder = SamMaskDecoder(cfg.decoder, device=device)
@@ -333,8 +515,9 @@ class SAM:
     @classmethod
     def from_jax_params(cls, cfg: SamConfig, params_np: Mapping[str, Any],
                         device: torch.device | str = default_device()) -> "SAM":
-        """Load a ``vlfm_tpu`` SAM (TinyViT) parameter tree given as numpy
-        arrays. Every parameter must be present and every shape must match."""
+        """Load a ``vlfm_tpu`` SAM parameter tree (either encoder) given as
+        numpy arrays. Every parameter must be present and every shape must
+        match."""
         module = SamModule(cfg, device=device)
         module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
         return cls(cfg, module)
@@ -344,22 +527,28 @@ class SAM:
         return self.module.encode_image(images)
 
     @torch.inference_mode()
-    def decode(self, image_embed: torch.Tensor, boxes01: torch.Tensor):
-        """-> (bool masks (B, NB, 4G, 4G) of mask token 0, iou (B, NB, M)):
-        one mask per box, as the reference asks
-        (SamPredictor.predict(multimask_output=False))."""
+    def decode(self, image_embed: torch.Tensor, boxes01: torch.Tensor, multimask_output: bool = False):
+        """-> (bool masks (B, NB, 4G, 4G), iou (B, NB, M)): one mask per box.
+        Without ``multimask_output`` it is mask token 0, as the reference
+        asks (SamPredictor.predict(multimask_output=False)); with it, the
+        token of the best iou among tokens 1..M-1."""
         masks, iou = self.module.decode_boxes(image_embed, boxes01)
-        return masks[:, :, 0] > 0.0, iou
+        if multimask_output:
+            best = torch.argmax(iou[..., 1:], dim=-1) + 1
+            sel = torch.take_along_dim(masks, best[..., None, None, None], dim=2)[:, :, 0]
+        else:
+            sel = masks[:, :, 0]
+        return sel > 0.0, iou
 
-    def segment_boxes(self, images: torch.Tensor, boxes01: torch.Tensor):
+    def segment_boxes(self, images: torch.Tensor, boxes01: torch.Tensor, multimask_output: bool = False):
         """(B, S, S, 3) 0..255 floats + (B, NB, 4) boxes in [0, 1] -> bool
         masks (B, NB, 4G, 4G) at a quarter of the input resolution, and the
         iou scores."""
-        return self.decode(self.encode(images), boxes01)
+        return self.decode(self.encode(images), boxes01, multimask_output)
 
     @torch.inference_mode()
     def segment_boxes_gated(self, images: torch.Tensor, boxes01: torch.Tensor, frame_valid: torch.Tensor,
-                            capacity: int):
+                            capacity: int, multimask_output: bool = False):
         """``segment_boxes`` on the frames that hold a valid detection only.
 
         Frames with one or more valid boxes sort first (a stable sort), then
@@ -382,8 +571,9 @@ class SAM:
         n_has = int(has.sum())
         g4 = 4 * self.cfg.vision.grid
         masks = torch.zeros((b, nb, g4, g4), dtype=torch.bool, device=frame_valid.device)
+        kw = {"multimask_output": True} if multimask_output else {}  # the two-argument call by default
         for p in range(-(-n_has // capacity)):
             start = min(p * capacity, b - capacity)
             sel = order[start:start + capacity]
-            masks[sel] = self.segment_boxes(images[sel], boxes01[sel])[0]
+            masks[sel] = self.segment_boxes(images[sel], boxes01[sel], **kw)[0]
         return masks, frame_valid

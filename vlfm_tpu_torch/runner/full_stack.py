@@ -18,8 +18,9 @@ random weights it runs every seam and measures the stack's throughput.
   trigger of monocular depth (ZoeDepth) for the object map.
 - ``run_full_stack_episode``: one episode (B = 1) with model perception.
 
-The ViT-det SAM encoder behind JAX's ``tiny_sam_config`` is not ported
-(ROADMAP Queue 1, SAM's ViT-det encoder): the port's SAM is MobileSAM.
+The default SAM is a tiny MobileSAM; ``tiny_sam_config`` is the tiny
+ViT-det SAM of JAX's ``tiny_sam_config``, and ``sam=`` takes a SAM with
+either encoder (``SamConfig()`` is sam-vit-base's ViT-det).
 """
 
 from __future__ import annotations
@@ -37,7 +38,7 @@ from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
 from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
 from vlfm_tpu_torch.models.coco_detector import CocoDetector
 from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
-from vlfm_tpu_torch.models.sam import SAM, SamConfig
+from vlfm_tpu_torch.models.sam import SAM, SamConfig, SamDecoderConfig, SamVisionConfig
 from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear_hw
@@ -55,6 +56,20 @@ from vlfm_tpu_torch.runner.episode_driver import (
     step_keys,
 )
 from vlfm_tpu_torch.utils.measurements import TraveledStairs
+
+
+def tiny_sam_config() -> SamConfig:
+    """A tiny ViT-det SAM at 64 px, as JAX's ``tiny_sam_config``."""
+    return SamConfig(
+        vision=SamVisionConfig(
+            image_size=64, patch_size=8, width=32, depth=2, heads=2,
+            mlp_dim=128, window_size=2, global_attn_indexes=(1,), out_channels=16,
+        ),
+        decoder=SamDecoderConfig(
+            hidden=16, layers=2, heads=2, mlp_dim=32, iou_head_depth=2, iou_head_hidden=16
+        ),
+        pe_dim=8,
+    )
 
 
 class FullStackPerception:

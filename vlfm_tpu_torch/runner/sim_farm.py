@@ -16,7 +16,8 @@ process on the card:
   over all lanes (``runner/packing.py``: one packed host-to-device copy
   from pinned memory, one (B, 4) read back) and pushes small action
   records back.
-- All lanes form ONE group with one device state. JAX splits them into two
+- All lanes form ONE group with one device state (one per data device
+  under ``sharding=``, ``parallel/mesh.py``). JAX splits them into two
   groups dispatched ping-pong, since its dispatch returns at once; the
   port's dispatch blocks the host (the step's sweep loops and gated SAM
   read back), so a second group would only halve the batch and double the
@@ -305,15 +306,23 @@ def run_episodes_farm(
     ``{ring_prefix}_obs`` and ``{ring_prefix}_act`` in ``/dev/shm``; the
     default prefix is unique to this process and call.
 
-    Returns ({seed: EpisodeResult}, FarmStats). ``sharding`` raises: the
-    farm's sharding over several cards waits for ``parallel/mesh.py``."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "the farm's sharding is not ported to vlfm_tpu_torch yet (ROADMAP Queue 1, `parallel/mesh.py`)")
+    With ``sharding`` (``parallel.mesh.episode_sharding(mesh)``) the lanes
+    split into one contiguous block per data device of the mesh, each with
+    its own state there, and a dispatch runs block by block: each block's
+    inputs cross to its device on their own (the packed transport is off,
+    as in JAX) and its (B / n, 4) outputs come back in one read. A
+    ``PointNavPolicy`` is copied to each device (``shard_params_tp``);
+    ``perception`` must live on every device of the mesh (one card, or the
+    CPU). Lanes split as episodes do, so the results equal the unsharded
+    farm's. ``device`` is then the mesh's.
+
+    Returns ({seed: EpisodeResult}, FarmStats)."""
     import torch
 
     from vlfm_tpu_torch.device import default_device
+    from vlfm_tpu_torch.models.pointnav import PointNavPolicy
     from vlfm_tpu_torch.ops.resize import resize_bilinear_hw
+    from vlfm_tpu_torch.parallel import mesh as mesh_lib
     from vlfm_tpu_torch.policy import itm
     from vlfm_tpu_torch.runner import packing
     from vlfm_tpu_torch.runner.episode_driver import episode_result, observation, pack_outputs, step_keys
@@ -326,9 +335,25 @@ def run_episodes_farm(
     h, w = env_cfg.height, env_cfg.width
     if (rgb_half or depth_half) and (h % 2 or w % 2):
         raise ValueError("half-size transport needs even frame sizes")
-    if device is None:
-        device = perception.device if perception is not None else default_device()
-    device = torch.device(device)
+    if sharding is not None:
+        if not isinstance(sharding, mesh_lib.Sharding) or sharding.spec != ("data",):
+            raise TypeError("sharding= takes parallel.mesh.episode_sharding(mesh)")
+        devices = sharding.data_devices()
+        if lanes % len(devices):
+            raise ValueError(f"{lanes} lanes do not split over {len(devices)} data devices")
+        if perception is not None and any(d != perception.device for d in devices):
+            raise ValueError(f"perception on {perception.device} cannot serve a mesh over {devices}")
+    else:
+        if device is None:
+            device = perception.device if perception is not None else default_device()
+        devices = [torch.device(device)]
+    device = devices[0]
+    per = lanes // len(devices)
+    blocks = [(d, i * per, (i + 1) * per) for i, d in enumerate(devices)]  # (device, first lane, end)
+    if isinstance(pointnav, PointNavPolicy) and sharding is not None:
+        block_pointnav = [PointNavPolicy(m) for m in mesh_lib.shard_params_tp(pointnav.module, sharding.mesh)]
+    else:
+        block_pointnav = [pointnav] * len(devices)
     ring_prefix = ring_prefix or f"vlfm_farm{os.getpid()}_{next(_farm_ids)}"
     k = cfg.max_detections_per_frame
     want_rgb = perception is not None
@@ -351,22 +376,24 @@ def run_episodes_farm(
     views = packing.pack_views(hbuf.numpy(), layout)
 
     if perception is not None:
-        fused = perception.make_fused_step(pointnav, spec, cfg, target, version=version, layout=layout)
+        fused = perception.make_fused_step(pointnav, spec, cfg, target, version=version,
+                                           layout=None if sharding is not None else layout)
 
-    def oracle_fused(state, f):
-        """The oracle dispatch: the environments' cosines, and their target
-        masks as detection 0."""
+    def oracle_fused(state, f, pointnav):
+        """The oracle dispatch of one block of lanes: the environments'
+        cosines, and their target masks as detection 0."""
         depth = f["depth"]
+        n, dev = depth.shape[0], depth.device
         if depth.dtype == torch.uint16:
             depth = depth.to(torch.float32) * (1.0 / 65535.0)
         if tuple(depth.shape[-2:]) != (h, w):
             depth = resize_bilinear_hw(depth, h, w)
         state = itm.reset_lanes(state, f["reset"].to(torch.bool))
-        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=device)  # np.packbits' big-endian order
-        m0 = ((f["bits"][:, :, None] >> shifts) & 1).to(torch.bool).reshape(lanes, -1)[:, : h * w]
-        masks = torch.zeros((lanes, k, h, w), dtype=torch.bool, device=device)
-        masks[:, 0] = m0.reshape(lanes, h, w)
-        valid = torch.zeros((lanes, k), dtype=torch.bool, device=device)
+        shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=dev)  # np.packbits' big-endian order
+        m0 = ((f["bits"][:, :, None] >> shifts) & 1).to(torch.bool).reshape(n, -1)[:, : h * w]
+        masks = torch.zeros((n, k, h, w), dtype=torch.bool, device=dev)
+        masks[:, 0] = m0.reshape(n, h, w)
+        valid = torch.zeros((n, k), dtype=torch.bool, device=dev)
         valid[:, 0] = f["valid0"].to(torch.bool)
         action, info, state = itm.step(state, observation(depth, f["xy"], f["heading"], cfg), f["cos"], masks, valid,
                                        step_keys(f["seeds"], f["steps"]), pointnav=pointnav, spec=spec, cfg=cfg,
@@ -416,7 +443,7 @@ def run_episodes_farm(
         else:
             os.environ["CUDA_VISIBLE_DEVICES"] = prev_visible
 
-    state = itm.create_state(spec, cfg, batch=lanes, device=device)
+    states = [itm.create_state(spec, cfg, batch=hi - lo, device=d) for d, lo, hi in blocks]
     lane_info = [_Lane(stairs=TraveledStairs()) for _ in range(lanes)]
     results = {}
     expected = len(episode_seeds)
@@ -460,7 +487,8 @@ def run_episodes_farm(
                 shortest_path=r["shortest"], path_length=r["path_len"], steps=r["steps"], max_steps=limit,
                 collisions=r["collisions"], feasible=r["feasible"], target=r["target"],
                 target_radius=r["target_radius"], detected=li.hist.get(r["seed"], False), seen=r["seen"],
-                stairs=stairs, last_goal=last_goal, explored=state.obstacle.explored[r["lane"]], spec=spec)
+                stairs=stairs, last_goal=last_goal, explored=states[r["lane"] // per].obstacle.explored[r["lane"] % per],
+                spec=spec)
 
     def can_dispatch() -> bool:
         live = [li for li in lane_info if li.active]
@@ -468,8 +496,8 @@ def run_episodes_farm(
 
     def dispatch():
         """Fill the pinned buffer, copy it up in one piece and run the fused
-        dispatch; returns (out, meta)."""
-        nonlocal state
+        dispatch (under ``sharding``, each block's fields to its device and
+        one dispatch per block); returns (the outputs of each block, meta)."""
         views["seeds"][:] = 0
         views["steps"][:] = 0
         if not want_rgb:
@@ -496,19 +524,34 @@ def run_episodes_farm(
             li.last = o
             li.needs_reset = False
             li.pending = None
-        t = time.time()
-        buf = hbuf.to(device, non_blocking=True)  # the dispatch's one host-to-device copy
-        stats.t_put += time.time() - t
-        stats.bytes_put += layout.total
-        if want_rgb:
-            out, state = fused(state, None, buf)
-        else:
-            out, state = oracle_fused(state, packing.unpack_device(layout, buf))
+        outs = []
+        if sharding is None:
+            t = time.time()
+            buf = hbuf.to(device, non_blocking=True)  # the dispatch's one host-to-device copy
+            stats.t_put += time.time() - t
+            stats.bytes_put += layout.total
+            if want_rgb:
+                out, states[0] = fused(states[0], None, buf)
+            else:
+                out, states[0] = oracle_fused(states[0], packing.unpack_device(layout, buf), pointnav)
+            outs.append(out)
+        for b, (dev, lo, hi) in enumerate(blocks if sharding is not None else ()):
+            t = time.time()
+            f = {name: torch.from_numpy(v[lo:hi]).to(dev) for name, v in views.items()}
+            stats.t_put += time.time() - t
+            stats.bytes_put += sum(v[lo:hi].nbytes for v in views.values())
+            if want_rgb:
+                action, detected, goal, states[b] = fused(states[b], None, f["reset"], f["depth"], f["heading"],
+                                                          f["xy"], f["rgb"], f["seeds"], f["steps"])
+                out = torch.cat([action[:, None].to(torch.float32), detected[:, None].to(torch.float32), goal], 1)
+            else:
+                out, states[b] = oracle_fused(states[b], f, block_pointnav[b])
+            outs.append(out)
         stats.dispatches += 1
-        return out, meta
+        return outs, meta
 
-    def sync(out, meta) -> None:
-        out_np = out.cpu().numpy()
+    def sync(outs, meta) -> None:
+        out_np = np.concatenate([out.cpu().numpy() for out in outs])
         actions_np, detected_np, goals_np = out_np[:, 0].astype(np.int32), out_np[:, 1] > 0.5, out_np[:, 2:4]
         for lane, seed, step, live in meta:
             if not live:
