@@ -197,7 +197,19 @@ Phases (any failure raises, and the script exits non-zero):
      (continuous); (d) ``evaluate_semexp`` over ``FakeSemExpVecEnv``, one
      16-step episode with phase 24's agent and phase 20's models; (e)
      phase 20's oracle farm with ``sharding=episode_sharding(make_mesh(1))``
-     equal to the unsharded farm field for field.
+     equal to the unsharded farm field for field;
+ 27. the serving bundle: (a) ``save_bundle`` of phase 20's BLIP2-ITM,
+     OWL-ViT and MobileSAM with the toy vocab, ``load_bundle`` onto the
+     card (GiB and seconds per entry), every state dict bit-equal; (b) a
+     full-width mobile_sam.pt (seeded) through ``python -m
+     vlfm_tpu_torch.convert_checkpoints``, loaded onto the card equal to
+     its converter's tree, segmenting phase 11's 8 frames (K2 counted);
+     (c) ``full_stack_from_bundle`` replaying BUNDLE_STEPS of phase 20's
+     B=8 packed dispatches bit for bit against FullStackPerception over the
+     in-memory models with the bundle's vocabulary (outputs and state), K1,
+     K2 and K3 per dispatch (214, 3 per SAM pass, 39), one dispatch timed;
+     (d) ``python -m vlfm_tpu_torch.run --backend synthetic --farm 8
+     --episodes 8 --max-steps 10 --weights-dir`` exiting 0 with its JSON.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -444,9 +456,9 @@ TINY_VQA_ATOL = 1e-3  # phase 21: tiny f32 prefix and first-token logits, card a
 # and may answer otherwise, and is counted.
 VQA_LOGIT_ATOL = 0.05
 VQA_TIE = 2 * VQA_LOGIT_ATOL
-VQA_STEPS = 4  # phase 21: fused dispatches with the veto (in the spin)
+VQA_STEPS = 2  # phase 21: fused dispatches with the veto (in the spin)
 VQA_FARM_EPISODES = 8  # phase 21: the veto's farm, open_room_plan episodes
-VQA_FARM_STEPS = 4
+VQA_FARM_STEPS = 2
 TINY_ZOE_ATOL = 1e-4  # phase 22: tiny ZoeDepth's metric depth (m), card against CPU
 ZOE_LANE_ATOL = 1e-4  # phase 22: normalised depth, a lane at B=8 against B=1 (cuDNN picks algorithms per batch)
 # phase 23: behaviour cloning. (a) one batch of B=2, T=6 at 48x64, card against CPU under exact_f32: the loss
@@ -484,6 +496,9 @@ TINY_VITDET_MARGIN = 1e-3  # masks compared where |logit| exceeds this share of 
 VITDET_LANE_RTOL = 1e-4  # sam-vit-base, a lane at B=8 against B=1 (f32 compute; cuBLAS tiles per batch)
 STOCHASTIC_KEYS = 16
 SEMEXP_STEPS = 16
+# phase 27: the serving bundle
+BUNDLE_STEPS = 6  # phase 20's recorded dispatches replayed through the bundle-served stack
+BUNDLE_FARM = dict(lanes=8, episodes=8, steps=10)  # run.py --farm --weights-dir
 
 
 def log(msg: str) -> None:
@@ -1919,7 +1934,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
             f"and gated SAM per dispatch: all finished, successes {sum(r.success for r in res)}, steps "
             f"{[r.steps for r in res]}, detected {sum(r.target_detected for r in res)}; frames with a detection "
             f"{sum(int(f) for f in counter.frames)}; {farm_summary(fstats)}; on {smi}")
-    return launches, oracle
+    return launches, oracle, record
 
 
 # --- phase 21 ----------------------------------------------------------------
@@ -2997,6 +3012,139 @@ def phase_sharded_farm(spec, oracle: dict, smi: str) -> None:
         f"{farm_summary(stats)}; on {smi}")
 
 
+# --- phase 27 ----------------------------------------------------------------
+def state_dicts_equal(got: torch.nn.Module, want: torch.nn.Module) -> bool:
+    a, b = got.state_dict(), want.state_dict()
+    return list(a) == list(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k]) for k in b)
+
+
+def seeded_checkpoint(shapes: dict, seed: int) -> dict:
+    """A state dict of seeded f32 tensors for a key -> shape table, the
+    BatchNorms' running variances positive."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, shape in shapes.items():
+        v = rng.normal(0, 0.05, shape).astype(np.float32)
+        sd[k] = torch.from_numpy(np.abs(v) + 0.5 if k.endswith("running_var") else v)
+    return sd
+
+
+def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: torch.Tensor, smi: str) -> dict:
+    """(a) save phase 20's models as a bundle and load it onto the card;
+    (b) convert a full-width MobileSAM checkpoint with the CLI and segment
+    with it; (c) serve the full stack from the bundle, held bit for bit to
+    the in-memory stack on phase 20's inputs; (d) run.py --weights-dir."""
+    from vlfm_tpu_torch.models.sam import convert_mobile_sam, expected_mobile_sam_checkpoint_keys
+    from vlfm_tpu_torch.runner.weights import full_stack_from_bundle, load_bundle, save_bundle
+
+    b = BATCH_LANES
+    cfg = dataclasses.replace(VLFMConfig(), sam_frame_capacity=SAM_CAPACITY)
+    with tempfile.TemporaryDirectory(prefix="vlfm-bundle-") as tmp:
+        vocab = os.path.join(tmp, "vocab.txt")
+        with open(vocab, "w", encoding="utf-8") as f:
+            f.write("\n".join(toy_vocab()) + "\n")
+        t0 = time.perf_counter()
+        path = save_bundle(os.path.join(tmp, "bundle"), itm=engine.itm, detector=det, sam=sam, vocab_file=vocab)
+        save_s = time.perf_counter() - t0
+        loaded = load_bundle(path, device=DEV)
+        sizes = {n: os.path.getsize(os.path.join(path, f"{n}.pt")) / 2**30 for n in ("itm", "detector", "sam")}
+        for name, want in (("itm", engine.itm), ("detector", det), ("sam", sam)):
+            got = getattr(loaded, name)
+            check(got.cfg == want.cfg and state_dicts_equal(got.module, want.module),
+                  f"bundle: {name} loads other weights or another config than were saved")
+        log(f"[bundle] save_bundle of phase 20's BLIP2-ITM, OWL-ViT and MobileSAM (bf16 under cast_for_serving) "
+            f"and the toy vocab: {save_s:.2f} s; load_bundle onto the card, per entry: "
+            + ", ".join(f"{n} {sizes[n]:.3f} GiB in {loaded.seconds[n]:.2f} s "
+                        f"({sizes[n] / max(loaded.seconds[n], 1e-9):.2f} GiB/s)" for n in sizes)
+            + f"; every state dict bit-equal to the in-memory model's, configs equal; on {smi}")
+        del loaded
+
+        # (b) a full-width mobile_sam.pt through the converter CLI
+        scfg = SamConfig.mobile_sam()
+        ckpt = seeded_checkpoint(expected_mobile_sam_checkpoint_keys(scfg), seed=0)
+        pt = os.path.join(tmp, "mobile_sam.pt")
+        torch.save(ckpt, pt)
+        t0 = time.perf_counter()
+        out = subprocess.run([sys.executable, "-m", "vlfm_tpu_torch.convert_checkpoints", "--out",
+                              os.path.join(tmp, "converted"), "--mobile-sam", pt, "--vocab", vocab],
+                             capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        convert_s = time.perf_counter() - t0
+        check(out.returncode == 0, f"convert_checkpoints exited {out.returncode}: {out.stderr[-2000:]}")
+        converted = load_bundle(os.path.join(tmp, "converted"), device=DEV)
+        want = SAM.from_jax_params(scfg, convert_mobile_sam({k: v.numpy() for k, v in ckpt.items()}, scfg),
+                                   device=DEV)
+        cast_for_serving(want.module)
+        check(converted.sam.cfg == scfg and state_dicts_equal(converted.sam.module, want.module),
+              "the converted MobileSAM differs from the converter's tree loaded and cast on the card")
+        pipe = make_pipeline(det, converted.sam, cfg, SAM_CAPACITY)
+        mbconv_chain.launches = 0
+        masks, valid, _ = pipe(rgb, COCO_TARGET)
+        torch.cuda.synchronize()
+        k2 = mbconv_chain.launches
+        check(k2 > 0 and masks.shape[:2] == valid.shape and bool(valid.any()),
+              "the converted MobileSAM segmented nothing or launched no K2")
+        log(f"[bundle] a full-width mobile_sam.pt ({len(ckpt)} tensors, "
+            f"{sum(v.numel() for v in ckpt.values()) / 1e6:.2f} M values, seeded) through python -m "
+            f"vlfm_tpu_torch.convert_checkpoints: exit 0 in {convert_s:.2f} s; on the card its state dict equals "
+            f"the converter's tree loaded and cast; phase 11's pipeline with it on the 8 spin frames: "
+            f"{int(valid.sum())} valid detections, K2 {k2}; on {smi}")
+        del converted, want, pipe
+
+        # (c) the full stack served from the bundle against the in-memory stack, on phase 20's inputs
+        served = full_stack_from_bundle(cfg, path, device=DEV)
+        direct = FullStackPerception(cfg, itm=engine.itm, detector=det, sam=sam, device=DEV)
+        direct.tokenizer = direct.engine.tokenizer = served.tokenizer  # the bundle's vocabulary
+        pointnav = PointNavPolicy.init_random(seed=0, depth_shape=tuple(cfg.depth_image_shape), device=DEV)
+        layout = full_stack_layout(b, *record[0]["inputs"]["depth"].shape[1:])
+        counter = served.pipeline = CountingPipeline(served.pipeline)
+        stacks = [(p, p.make_fused_step(pointnav, spec, cfg, COCO_TARGET, layout=layout)) for p in (served, direct)]
+        buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+        views = packing.pack_views(buf.numpy(), layout)
+        states = [ITM.create_state(spec, cfg, batch=b, device=DEV) for _ in stacks]
+        for p, _ in stacks:  # text features and queries cached before the counts
+            p.engine.text_features(COCO_TARGET)
+            p.pipeline._queries(COCO_TARGET)
+            p.pipeline.coco_detector._coco_queries()
+        counts = []
+        for k, r in enumerate(record[:BUNDLE_STEPS]):
+            for name, v in views.items():
+                v[...] = r["inputs"][name]
+            outs = []
+            for i, (_, fused) in enumerate(stacks):
+                layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+                out, states[i] = fused(states[i], None, buf)
+                outs.append(out.cpu())
+                if i == 0:
+                    counts.append((layer_norm.launches, mbconv_chain.launches, attention.launches))
+            check(torch.equal(outs[0], outs[1]), f"bundle-served dispatch {k}: outputs differ from the in-memory "
+                  f"stack's ({(outs[0] != outs[1]).sum().item()} values)")
+        flat = [[t for f in s_ for t in (f if isinstance(f, tuple) else (f,))] for s_ in states]
+        check(all(torch.equal(x, y) for x, y in zip(*flat)), "bundle-served state differs from the in-memory one")
+        frames = [int(f) for f in counter.frames]
+        want_counts = [(LAUNCHES_IMAGE + 2 * LAUNCHES_DETECT, chain_launches(sam.cfg.tinyvit) * -(-f // SAM_CAPACITY),
+                        ATTN_LAUNCHES_IMAGE) for f in frames]
+        check(counts == want_counts, f"bundle-served dispatches: K1, K2, K3 launches {counts}, expected {want_counts}")
+        launches = dict(layer_norm=sum(c[0] for c in counts), mbconv_chain=sum(c[1] for c in counts),
+                        attention=sum(c[2] for c in counts))
+        st = states[0]._replace(steps=states[0].steps + 1)
+        timing = step_timings("bundle-served fused dispatch", b, lambda: stacks[0][1](st, None, buf)[0].cpu(), smi)
+        log(f"[bundle] full_stack_from_bundle (the bundle's vocab, max_len {served.tokenizer.max_len}) against "
+            f"FullStackPerception over the in-memory models with that vocab: {BUNDLE_STEPS} of phase 20's B={b} "
+            f"packed dispatches bit for bit (outputs and state); per dispatch K1, K2, K3 {counts}; one dispatch "
+            f"{timing['ms']:.2f} ms wall, {timing['device_ms']:.2f} ms device, idle {timing['idle']:.3f}; on {smi}")
+        del served, direct, stacks, states, st
+
+        # (d) run.py serving the bundle over the sim farm
+        run_out = cli_json(["vlfm_tpu_torch.run", "--backend", "synthetic", "--farm", str(BUNDLE_FARM["lanes"]),
+                            "--episodes", str(BUNDLE_FARM["episodes"]), "--max-steps", str(BUNDLE_FARM["steps"]),
+                            "--weights-dir", path])
+        check(run_out["episodes"] == BUNDLE_FARM["episodes"] and run_out["avg_steps"] > 0,
+              f"run.py --weights-dir's aggregate {run_out}")
+        log(f"[bundle] run.py --farm {BUNDLE_FARM['lanes']} --weights-dir: {json.dumps(run_out)}; on {smi}")
+    return launches
+
+
 def farm_summary(stats) -> str:
     return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
             f"{stats.dispatches} dispatches, "
@@ -3082,7 +3230,8 @@ def main() -> None:
     lap("18 object map")
     episodes_run, recycled = phase_batched_episodes(engine, spec, cfg, smi)
     lap("19 batched episodes")
-    full_stack_run, oracle_farm = phase_full_stack(engine, det, sam, spec, recycled, smi)
+    full_stack_run, oracle_farm, full_stack_record = phase_full_stack(engine, det, sam, spec, recycled, smi)
+    full_stack_record = full_stack_record[:BUNDLE_STEPS]
     lap("20 full stack, farm")
 
     phase_tiny_vqa()
@@ -3113,6 +3262,8 @@ def main() -> None:
     semexp_run = phase_semexp(engine, det, sam, fitted, smi)
     phase_sharded_farm(spec, oracle_farm, smi)
     lap("26 ViT-det SAM, stochastic PointNav, SemExp, mesh")
+    bundle_run = phase_bundle(engine, det, sam, spec, full_stack_record, rgb, smi)
+    lap("27 bundle")
     del engine, det, sam
     log("[phase-time] " + "; ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
@@ -3139,6 +3290,8 @@ def main() -> None:
           "the ViT-det detection path launched no K1, or launched K2")
     check(all(semexp_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the SemExp loop launched no K1, K2 or K3")
+    check(all(bundle_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
+          "the bundle-served full stack launched no K1, K2 or K3")
     record = {
         "kernels": [
             kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
@@ -3148,22 +3301,24 @@ def main() -> None:
                            "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
                            "vqa_full_stack_step": vqa_stack_run["layer_norm"],
                            "habitat_eval": habitat_run["layer_norm"], "reality": reality_run["layer_norm"],
-                           "vitdet_detection": vitdet_run["layer_norm"], "semexp": semexp_run["layer_norm"]}, ln),
+                           "vitdet_detection": vitdet_run["layer_norm"], "semexp": semexp_run["layer_norm"],
+                           "bundle_full_stack": bundle_run["layer_norm"]}, ln),
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],
                            "full_stack_step": full_stack_run["mbconv_chain"],
                            "vqa_full_stack_step": vqa_stack_run["mbconv_chain"],
                            "habitat_eval": habitat_run["mbconv_chain"], "reality": reality_run["mbconv_chain"],
-                           "vitdet_detection": vitdet_run["mbconv_chain"], "semexp": semexp_run["mbconv_chain"]},
-                          k2),
+                           "vitdet_detection": vitdet_run["mbconv_chain"], "semexp": semexp_run["mbconv_chain"],
+                           "bundle_full_stack": bundle_run["mbconv_chain"]}, k2),
             kernel_record("attention", "vlfm_tpu/ops/attention.py:55",
                           {"itm_spin": main_run["attention"], "batched_spin": batched_run["attention"],
                            "decision_step": episodes_run["attention"],
                            "full_stack_step": full_stack_run["attention"], "vqa_veto": veto_run["attention"],
                            "vqa_full_stack_step": vqa_stack_run["attention"],
                            "habitat_eval": habitat_run["attention"], "reality": reality_run["attention"],
-                           "vitdet_detection": vitdet_run["attention"], "semexp": semexp_run["attention"]}, k3),
+                           "vitdet_detection": vitdet_run["attention"], "semexp": semexp_run["attention"],
+                           "bundle_full_stack": bundle_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

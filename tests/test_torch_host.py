@@ -82,6 +82,24 @@ def test_tokenizer_unknown_word_matches_jax():
         assert TOK.WordPieceTokenizer(vocab).encode(text) == JTOK.WordPieceTokenizer(vocab).encode(text)
 
 
+def test_tokenizer_from_vocab_file_matches_jax(tmp_path):
+    """A BERT vocab.txt (one token per line, blank and repeated lines too)
+    read by both packages: the same vocabulary and ids."""
+    vocab = tmp_path / "vocab.txt"
+    vocab.write_text("\n".join([*TOK.toy_vocab(["chair", "##s", "toilet"]), "", "chair", "caf\u00e9"]) + "\n",
+                     encoding="utf-8")
+    texts = ["Seems like there is a chair ahead.", "toilets", "caf\u00e9 chairs", ""]
+    got, want = TOK.WordPieceTokenizer.from_vocab_file(str(vocab), 12), JTOK.WordPieceTokenizer.from_vocab_file(
+        str(vocab), 12)
+    assert got.vocab == want.vocab and got.max_len == want.max_len == 12
+    assert (got.cls_id, got.sep_id, got.pad_id, got.unk_id) == (want.cls_id, want.sep_id, want.pad_id, want.unk_id)
+    got_ids, got_mask = got.encode_batch(texts)
+    want_ids, want_mask = want.encode_batch(texts)
+    np.testing.assert_array_equal(got_ids.numpy(), want_ids)
+    np.testing.assert_array_equal(got_mask.numpy(), want_mask)
+    assert TOK.WordPieceTokenizer.from_vocab_file(str(vocab)).max_len == 32
+
+
 def test_coco_classes_match_jax():
     assert COCO.COCO_CLASSES == JCOCO.COCO_CLASSES
     assert len(COCO.COCO_CLASSES) == 80
@@ -230,7 +248,8 @@ def test_chip_smoke_and_profile_script_import_nothing_of_jax():
         "for m in ('vlfm_tpu_torch.run', 'vlfm_tpu_torch.runner.imitation', 'vlfm_tpu_torch.adapters.habitat',\n"
         "          'vlfm_tpu_torch.reality.robots', 'vlfm_tpu_torch.reality.envs', 'vlfm_tpu_torch.policy.reality',\n"
         "          'vlfm_tpu_torch.runner.checkpoint', 'vlfm_tpu_torch.mapping.value_map_io',\n"
-        "          'vlfm_tpu_torch.utils.profiling'):\n"
+        "          'vlfm_tpu_torch.utils.profiling', 'vlfm_tpu_torch.runner.weights',\n"
+        "          'vlfm_tpu_torch.convert_checkpoints'):\n"
         "    assert m in mods, m\n"
         "import chip_smoke\n"
         "sys.path.insert(0, 'scripts')\n"

@@ -15,14 +15,16 @@ parameter tree onto this module mechanically.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import dense, kernel, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_, state_dict_from_jax_params  # noqa: F401
 from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig, TextEmbeddings
 from vlfm_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from vlfm_tpu_torch.ops.resize import resize_matmul
@@ -121,7 +123,7 @@ class BLIP2ITM:
         """Load a ``vlfm_tpu`` BLIP2ITM parameter tree given as numpy arrays.
         Every parameter must be present and every shape must match."""
         module = BLIP2ITMModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, params_np)
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -141,3 +143,85 @@ class BLIP2ITM:
         s = self.cfg.vit.image_size
         x = rgb_uint8.to(torch.float32) / 255.0
         return resize_matmul(x, s, s, "cubic")
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoint conversion (Salesforce/blip2-itm-vit-g layout)
+# ---------------------------------------------------------------------------
+def _ln(sd, name):
+    return {"ln": norm(sd, name)}
+
+
+def convert_vision_tree(sd: Mapping[str, Any], vit_cfg: ViTConfig) -> Dict[str, Any]:
+    """``vision_model.*`` (HF Blip2VisionModel, shared by the ITM and the
+    conditional-generation checkpoints) -> JAX's ViTEncoder tree."""
+    emb = "vision_model.embeddings"
+    vit: Dict[str, Any] = {
+        "patch_embed": {"kernel": kernel(sd[f"{emb}.patch_embedding.weight"])},
+        "class_embedding": leaf(np.asarray(sd[f"{emb}.class_embedding"]).reshape(-1)),
+        "position_embedding": leaf(np.asarray(sd[f"{emb}.position_embedding"]).reshape(-1, vit_cfg.width)),
+        "post_ln": _ln(sd, "vision_model.post_layernorm"),
+    }
+    if f"{emb}.patch_embedding.bias" in sd:
+        vit["patch_embed"]["bias"] = leaf(sd[f"{emb}.patch_embedding.bias"])
+    for i in range(vit_cfg.depth):
+        p = f"vision_model.encoder.layers.{i}"
+        vit[f"block{i}"] = {
+            "ln1": _ln(sd, f"{p}.layer_norm1"),
+            "ln2": _ln(sd, f"{p}.layer_norm2"),
+            "attn": {"qkv": dense(sd, f"{p}.self_attn.qkv"), "proj": dense(sd, f"{p}.self_attn.projection")},
+            "mlp": {"fc1": dense(sd, f"{p}.mlp.fc1"), "fc2": dense(sd, f"{p}.mlp.fc2")},
+        }
+    return vit
+
+
+def convert_qformer_tree(sd: Mapping[str, Any], q_cfg: QFormerConfig, *, text_branch: bool = True) -> Dict[str, Any]:
+    """``qformer.*`` -> JAX's QFormer tree. The conditional-generation
+    checkpoint carries only the query feed-forward branch (no
+    ``intermediate``/``output``); the retrieval checkpoint carries both."""
+    qf: Dict[str, Any] = {"embed_ln": _ln(sd, "qformer.layernorm")}
+    for i in range(q_cfg.layers):
+        p = f"qformer.encoder.layer.{i}"
+        layer: Dict[str, Any] = {
+            "self_attn": {
+                "query": dense(sd, f"{p}.attention.attention.query"),
+                "key": dense(sd, f"{p}.attention.attention.key"),
+                "value": dense(sd, f"{p}.attention.attention.value"),
+                "out": dense(sd, f"{p}.attention.output.dense"),
+            },
+            "self_ln": _ln(sd, f"{p}.attention.output.LayerNorm"),
+            "ffn_query_fc1": dense(sd, f"{p}.intermediate_query.dense"),
+            "ffn_query_fc2": dense(sd, f"{p}.output_query.dense"),
+            "ffn_query_ln": _ln(sd, f"{p}.output_query.LayerNorm"),
+        }
+        if text_branch:
+            layer["ffn_text_fc1"] = dense(sd, f"{p}.intermediate.dense")
+            layer["ffn_text_fc2"] = dense(sd, f"{p}.output.dense")
+            layer["ffn_text_ln"] = _ln(sd, f"{p}.output.LayerNorm")
+        if i % q_cfg.cross_attention_freq == 0:
+            layer["cross_attn"] = {
+                "query": dense(sd, f"{p}.crossattention.attention.query"),
+                "key": dense(sd, f"{p}.crossattention.attention.key"),
+                "value": dense(sd, f"{p}.crossattention.attention.value"),
+                "out": dense(sd, f"{p}.crossattention.output.dense"),
+            }
+            layer["cross_ln"] = _ln(sd, f"{p}.crossattention.output.LayerNorm")
+        qf[f"layer{i}"] = layer
+    return qf
+
+
+def convert_hf_state_dict(sd: Mapping[str, Any], cfg: BLIP2ITMConfig) -> Dict[str, Any]:
+    """A HF Blip2ForImageTextRetrieval state dict -> JAX's BLIP2ITM tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    q = cfg.qformer
+    return {
+        "vision": convert_vision_tree(sd, cfg.vit),
+        "qformer": convert_qformer_tree(sd, q, text_branch=True),
+        "query_tokens": leaf(sd["query_tokens"].reshape(q.num_queries, q.hidden)),
+        "text_embeddings": {
+            "word": {"embedding": leaf(sd["embeddings.word_embeddings.weight"])},
+            "position": leaf(sd["embeddings.position_embeddings.weight"]),
+        },
+        "vision_proj": dense(sd, "vision_projection"),
+        "text_proj": dense(sd, "text_projection"),
+    }

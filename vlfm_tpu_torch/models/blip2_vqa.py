@@ -18,17 +18,19 @@ takes the f32 Q-Former output, so the prefix, and T5 after it, are f32.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping
+from typing import Any, Dict, Mapping, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
-from vlfm_tpu_torch.models.blip2_itm import CLIP_MEAN, CLIP_STD
+from vlfm_tpu_torch.models.blip2_itm import CLIP_MEAN, CLIP_STD, convert_qformer_tree, convert_vision_tree
+from vlfm_tpu_torch.models.hf_convert import dense, leaf
 from vlfm_tpu_torch.models.layers import Dense
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig
-from vlfm_tpu_torch.models.t5_vqa import T5Config, T5VQA
+from vlfm_tpu_torch.models.t5_vqa import T5Config, T5VQA, convert_hf_t5
 from vlfm_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from vlfm_tpu_torch.ops.resize import resize_matmul
 
@@ -112,7 +114,7 @@ class BLIP2VQA:
         T5's) given as numpy arrays. Every parameter must be present and
         every shape must match."""
         module = BLIP2VisualPrefixModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(prefix_params_np), strict=True)
+        load_jax_params_(module, prefix_params_np)
         return cls(cfg, module, T5VQA.from_jax_params(cfg.t5, t5_params_np, device=device))
 
     @torch.inference_mode()
@@ -132,3 +134,25 @@ class BLIP2VQA:
         composition (vlfm/vlm/blip2.py:35-55)."""
         prefix = self.image_prefix(self.preprocess(rgb_uint8))
         return self.t5.generate(input_ids, attention_mask, max_new_tokens=max_new_tokens, prefix=prefix)
+
+
+def convert_hf_blip2_t5(sd: Mapping[str, Any], cfg: BLIP2VQAConfig) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """A HF Blip2ForConditionalGeneration state dict (the flan-T5 text
+    stack) -> JAX's (visual-prefix tree, T5 tree)."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    q = cfg.qformer
+    prefix = {
+        "vision": convert_vision_tree(sd, cfg.vit),
+        "qformer": convert_qformer_tree(sd, q, text_branch=False),
+        "query_tokens": leaf(sd["query_tokens"].reshape(q.num_queries, q.hidden)),
+        "language_projection": dense(sd, "language_projection"),
+    }
+    lm = "language_model."
+    return prefix, convert_hf_t5({k[len(lm):]: v for k, v in sd.items() if k.startswith(lm)}, cfg.t5)
+
+
+def load_blip2_vqa(sd: Mapping[str, Any], cfg: BLIP2VQAConfig,
+                   device: torch.device | str = default_device()) -> BLIP2VQA:
+    """A HF Blip2ForConditionalGeneration state dict as a ``BLIP2VQA`` on
+    ``device``."""
+    return BLIP2VQA.from_jax_params(cfg, *convert_hf_blip2_t5(sd, cfg), device=device)

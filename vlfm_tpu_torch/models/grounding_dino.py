@@ -57,9 +57,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import conv, dense, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, GroupNorm, LayerNorm, merge_heads, promoted, split_heads
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
-from vlfm_tpu_torch.models.swin import SwinBackbone, SwinConfig
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
+from vlfm_tpu_torch.models.swin import SwinBackbone, SwinConfig, convert_hf_swin
 from vlfm_tpu_torch.models.tinyvit import conv_nhwc
 from vlfm_tpu_torch.ops.deform_gather import deform_gather
 from vlfm_tpu_torch.ops.resize import resize_bilinear
@@ -481,7 +482,7 @@ class GroundingDinoModule(nn.Module):
         super().__init__()
         self.cfg = c = cfg
         d = c.d_model
-        self.swin = SwinBackbone(c.swin, device=device)
+        self.swin = SwinBackbone(c.swin, c.swin_out_stages, device=device)
         self.bert = BertBackbone(c.text, device=device)
         self.text_projection = Dense(c.text.hidden, d, device=device)
         chans = [_swin_channels(c)[i] for i in c.swin_out_stages]
@@ -633,7 +634,7 @@ class GroundingDinoDetector:
         """Load a ``vlfm_tpu`` GroundingDINO parameter tree given as numpy
         arrays. Every parameter must be present and every shape must match."""
         module = GroundingDinoModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, params_np)
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -653,6 +654,108 @@ class GroundingDinoDetector:
             torch.from_numpy(pos).to(dev),
             torch.from_numpy(~am).to(dev),
         )
+
+
+# ---------------------------------------------------------------------------
+# HF conversion (GroundingDinoForObjectDetection layout)
+# ---------------------------------------------------------------------------
+def _lin(sd, name):
+    return dense(sd, name, bias=None)
+
+
+def _mha(sd, name):
+    return {p: _lin(sd, f"{name}.{p}") for p in ("query", "key", "value", "out_proj")}
+
+
+def _deform(sd, name):
+    return {p: _lin(sd, f"{name}.{p}") for p in ("value_proj", "sampling_offsets", "attention_weights", "output_proj")}
+
+
+def _mlp_head(sd, name, layers):
+    return {f"layer{i}": _lin(sd, f"{name}.layers.{i}") for i in range(layers)}
+
+
+def convert_hf_grounding_dino(sd: Mapping[str, Any], cfg: GroundingDinoConfig) -> Dict[str, Any]:
+    """A HF GroundingDinoForObjectDetection state dict -> JAX's
+    GroundingDINO tree (the Swin backbone through ``convert_hf_swin``)."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    sw = "model.backbone.conv_encoder.model."
+    p: Dict[str, Any] = {"swin": convert_hf_swin({k[len(sw):]: v for k, v in sd.items() if k.startswith(sw)},
+                                                 cfg.swin)}
+    tb = "model.text_backbone"
+    bert: Dict[str, Any] = {
+        "word": {"embedding": leaf(sd[f"{tb}.embeddings.word_embeddings.weight"])},
+        "position": {"embedding": leaf(sd[f"{tb}.embeddings.position_embeddings.weight"])},
+        "token_type": {"embedding": leaf(sd[f"{tb}.embeddings.token_type_embeddings.weight"])},
+        "embed_ln": norm(sd, f"{tb}.embeddings.LayerNorm"),
+    }
+    for i in range(cfg.text.layers):
+        t = f"{tb}.encoder.layer.{i}"
+        bert[f"layer{i}"] = {
+            "q": _lin(sd, f"{t}.attention.self.query"),
+            "k": _lin(sd, f"{t}.attention.self.key"),
+            "v": _lin(sd, f"{t}.attention.self.value"),
+            "attn_out": _lin(sd, f"{t}.attention.output.dense"),
+            "attn_ln": norm(sd, f"{t}.attention.output.LayerNorm"),
+            "ffn_in": _lin(sd, f"{t}.intermediate.dense"),
+            "ffn_out": _lin(sd, f"{t}.output.dense"),
+            "ffn_ln": norm(sd, f"{t}.output.LayerNorm"),
+        }
+    p["bert"] = bert
+    p["text_projection"] = _lin(sd, "model.text_projection")
+    for li in range(cfg.num_feature_levels):
+        p[f"input_proj{li}_conv"] = conv(sd, f"model.input_proj_vision.{li}.0")
+        p[f"input_proj{li}_gn"] = norm(sd, f"model.input_proj_vision.{li}.1")
+    p["level_embed"] = leaf(sd["model.level_embed"])
+    for i in range(cfg.encoder_layers):
+        e = f"model.encoder.layers.{i}"
+        fa, te, dl = f"{e}.fusion_layer.attn", f"{e}.text_enhancer_layer", f"{e}.deformable_layer"
+        p[f"enc{i}"] = {
+            "fusion": {
+                "ln_vision": norm(sd, f"{e}.fusion_layer.layer_norm_vision"),
+                "ln_text": norm(sd, f"{e}.fusion_layer.layer_norm_text"),
+                "vision_param": leaf(sd[f"{e}.fusion_layer.vision_param"]),
+                "text_param": leaf(sd[f"{e}.fusion_layer.text_param"]),
+                "attn": {q: _lin(sd, f"{fa}.{q}") for q in (
+                    "vision_proj", "text_proj", "values_vision_proj", "values_text_proj",
+                    "out_vision_proj", "out_text_proj")},
+            },
+            "text_enhancer": {
+                "self_attn": _mha(sd, f"{te}.self_attn"),
+                "ln_before": norm(sd, f"{te}.layer_norm_before"),
+                "ln_after": norm(sd, f"{te}.layer_norm_after"),
+                "fc1": _lin(sd, f"{te}.fc1"),
+                "fc2": _lin(sd, f"{te}.fc2"),
+            },
+            "deformable": {
+                "self_attn": _deform(sd, f"{dl}.self_attn"),
+                "ln_attn": norm(sd, f"{dl}.self_attn_layer_norm"),
+                "fc1": _lin(sd, f"{dl}.fc1"),
+                "fc2": _lin(sd, f"{dl}.fc2"),
+                "ln_ffn": norm(sd, f"{dl}.final_layer_norm"),
+            },
+        }
+    p["enc_output"] = _lin(sd, "model.enc_output")
+    p["enc_output_norm"] = norm(sd, "model.enc_output_norm")
+    p["encoder_output_bbox_embed"] = _mlp_head(sd, "model.encoder_output_bbox_embed", 3)
+    p["query_position_embeddings"] = leaf(sd["model.query_position_embeddings.weight"])
+    p["reference_points_head"] = _mlp_head(sd, "model.decoder.reference_points_head", 2)
+    p["decoder_ln"] = norm(sd, "model.decoder.layer_norm")
+    for i in range(cfg.decoder_layers):
+        dl = f"model.decoder.layers.{i}"
+        p[f"dec{i}"] = {
+            "self_attn": _mha(sd, f"{dl}.self_attn"),
+            "ln_self": norm(sd, f"{dl}.self_attn_layer_norm"),
+            "text_attn": _mha(sd, f"{dl}.encoder_attn_text"),
+            "ln_text": norm(sd, f"{dl}.encoder_attn_text_layer_norm"),
+            "cross_attn": _deform(sd, f"{dl}.encoder_attn"),
+            "ln_cross": norm(sd, f"{dl}.encoder_attn_layer_norm"),
+            "fc1": _lin(sd, f"{dl}.fc1"),
+            "fc2": _lin(sd, f"{dl}.fc2"),
+            "ln_ffn": norm(sd, f"{dl}.final_layer_norm"),
+        }
+        p[f"dec_bbox{i}"] = _mlp_head(sd, f"model.decoder.bbox_embed.{i}", 3)
+    return p
 
 
 # ---------------------------------------------------------------------------

@@ -11,21 +11,23 @@ K1 (``csrc/layer_norm.cu``): pre_ln, two per layer and post_ln and merge_ln
 in one vision pass (27 at 12 layers), two per layer and final_ln in one
 text encoding (25). Submodules carry the flax scope names, so
 ``OwlViTDetector.from_jax_params`` loads a JAX tree through
-``params.state_dict_from_jax_params``.
+``params.load_jax_params_``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import dense, kernel, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, FastLayerNorm
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
@@ -260,7 +262,7 @@ class OwlViTDetector:
         """Load a ``vlfm_tpu`` OWL-ViT parameter tree given as numpy arrays.
         Every parameter must be present and every shape must match."""
         module = OwlViTDetectionModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, params_np)
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -291,3 +293,53 @@ def top_detections(boxes: torch.Tensor, logits: torch.Tensor, capacity: int, thr
     xyxy = torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1).clamp(0.0, 1.0)
     class_ids = torch.take_along_dim(cls, idx, dim=1)
     return xyxy, scores, class_ids, scores >= threshold
+
+
+# ---------------------------------------------------------------------------
+# HF conversion (google/owlvit-* and owlv2-* layouts)
+# ---------------------------------------------------------------------------
+def _clip_layer(sd, p):
+    return {
+        "ln1": norm(sd, f"{p}.layer_norm1"),
+        "ln2": norm(sd, f"{p}.layer_norm2"),
+        "attn": {
+            "q_proj": dense(sd, f"{p}.self_attn.q_proj"),
+            "k_proj": dense(sd, f"{p}.self_attn.k_proj"),
+            "v_proj": dense(sd, f"{p}.self_attn.v_proj"),
+            "out_proj": dense(sd, f"{p}.self_attn.out_proj"),
+        },
+        "fc1": dense(sd, f"{p}.mlp.fc1"),
+        "fc2": dense(sd, f"{p}.mlp.fc2"),
+    }
+
+
+def convert_hf_owlvit(sd: Mapping[str, Any], cfg: OwlViTDetConfig) -> Dict[str, Any]:
+    """A HF OwlViTForObjectDetection state dict -> JAX's OWL-ViT tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    vm, tm = "owlvit.vision_model", "owlvit.text_model"
+    vis: Dict[str, Any] = {
+        "patch_embed": {"kernel": kernel(sd[f"{vm}.embeddings.patch_embedding.weight"])},
+        "class_embedding": leaf(sd[f"{vm}.embeddings.class_embedding"]),
+        "position_embed": leaf(sd[f"{vm}.embeddings.position_embedding.weight"]),
+        "pre_ln": norm(sd, f"{vm}.pre_layernorm"),
+    }
+    for i in range(cfg.vision.layers):
+        vis[f"layer{i}"] = _clip_layer(sd, f"{vm}.encoder.layers.{i}")
+    txt: Dict[str, Any] = {
+        "token_embed": {"embedding": leaf(sd[f"{tm}.embeddings.token_embedding.weight"])},
+        "position_embed": leaf(sd[f"{tm}.embeddings.position_embedding.weight"]),
+        "final_ln": norm(sd, f"{tm}.final_layer_norm"),
+    }
+    for i in range(cfg.text.layers):
+        txt[f"layer{i}"] = _clip_layer(sd, f"{tm}.encoder.layers.{i}")
+    return {
+        "vision": vis,
+        "text": txt,
+        "post_ln": norm(sd, f"{vm}.post_layernorm"),
+        "merge_ln": norm(sd, "layer_norm"),
+        "text_projection": {"kernel": kernel(sd["owlvit.text_projection.weight"])},
+        "box_head": {f"dense{i}": dense(sd, f"box_head.dense{i}") for i in range(3)},
+        "class_dense": dense(sd, "class_head.dense0"),
+        "logit_shift": dense(sd, "class_head.logit_shift"),
+        "logit_scale": dense(sd, "class_head.logit_scale"),
+    }

@@ -54,7 +54,7 @@ def init_random_(module: nn.Module, gen: torch.Generator, stds: Mapping[str, flo
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.array(a)  # a writable, contiguous copy
+    a = np.array(a, order="C")  # one writable, contiguous copy
     if a.dtype.name == "bfloat16":  # numpy's bf16 (ml_dtypes) has no torch twin
         return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(a)
@@ -71,21 +71,46 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, Any]:
     return out
 
 
-def state_dict_from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """Rename and re-lay-out a JAX parameter tree (numpy leaves):
+def port_layout(params_np: Mapping[str, Any]) -> Dict[str, np.ndarray]:
+    """The port's parameter names for a JAX parameter tree (numpy leaves),
+    each leaf re-laid out as a numpy view, nothing copied:
     Dense ``kernel`` (in, out) -> ``weight`` (out, in); Conv ``kernel`` HWIO
     -> ``weight`` OIHW (a depthwise (3, 3, 1, C) becomes (C, 1, 3, 3), SAM's
     upscale (2, 2, Cin, Cout) becomes (Cout, Cin, 2, 2));
     ``Embed.embedding`` -> ``weight``; norm ``scale`` -> ``weight``. Every
     other leaf keeps its name and layout."""
-    sd: Dict[str, torch.Tensor] = {}
+    out: Dict[str, np.ndarray] = {}
     for name, leaf in _flatten(params_np).items():
         scope, _, leaf_name = name.rpartition(".")
-        t = _to_tensor(leaf)
+        a = np.asarray(leaf)
         if leaf_name == "kernel":
-            t = t.T if t.ndim == 2 else t.permute(3, 2, 0, 1)
+            a = a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1)
             leaf_name = "weight"
         elif leaf_name in ("embedding", "scale"):
             leaf_name = "weight"
-        sd[f"{scope}.{leaf_name}" if scope else leaf_name] = t.contiguous()
-    return sd
+        out[f"{scope}.{leaf_name}" if scope else leaf_name] = a
+    return out
+
+
+def state_dict_from_jax_params(params_np: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``port_layout`` as contiguous CPU tensors, one copy per leaf."""
+    return {name: _to_tensor(a) for name, a in port_layout(params_np).items()}
+
+
+@torch.no_grad()
+def load_jax_params_(module: nn.Module, params_np: Mapping[str, Any]) -> nn.Module:
+    """Copy a JAX parameter tree (numpy leaves) into ``module``'s
+    parameters and buffers, one leaf at a time, so a load holds one leaf's
+    copy beyond the tree and the module. Strict, as ``load_state_dict``: a
+    missing or unexpected name, or another shape, raises before anything is
+    copied."""
+    layout = port_layout(params_np)
+    own = module.state_dict(keep_vars=True)
+    missing, unexpected = sorted(own.keys() - layout.keys()), sorted(layout.keys() - own.keys())
+    shapes = [n for n in own.keys() & layout.keys() if tuple(own[n].shape) != layout[n].shape]
+    if missing or unexpected or shapes:
+        raise RuntimeError(f"loading a JAX tree into {type(module).__name__}: missing {missing}, unexpected "
+                           f"{unexpected}, other shapes {[(n, layout[n].shape, tuple(own[n].shape)) for n in shapes]}")
+    for name, a in layout.items():
+        own[name].copy_(_to_tensor(a))
+    return module

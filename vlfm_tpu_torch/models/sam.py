@@ -16,7 +16,7 @@ K2 kernel). ``cfg.tinyvit is None`` selects ViT-det.
 Submodules carry the flax scope names (``vision``, ``shared_pe``,
 ``prompt``, ``decoder.layer0.cross_t2i``, ``vision.block0.attn``, ...), so
 ``SAM.from_jax_params`` loads a JAX tree of either encoder through
-``params.state_dict_from_jax_params``.
+``params.load_jax_params_``.
 
 Precision mirrors flax's promotion: the decoder runs in the embedding's
 dtype, and a norm with f32 parameters lifts a bf16 stream to f32. With
@@ -32,17 +32,20 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import conv, dense, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm, Norm, promoted
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.precision import exact_f32
-from vlfm_tpu_torch.models.tinyvit import TinyViT, TinyViTConfig, conv_nhwc
+from vlfm_tpu_torch.models.tinyvit import (
+    TinyViT, TinyViTConfig, conv_nhwc, convert_mobile_sam_encoder, expected_mobile_sam_keys)
 from vlfm_tpu_torch.ops.resize import resize_matmul
 
 
@@ -519,7 +522,7 @@ class SAM:
         numpy arrays. Every parameter must be present and every shape must
         match."""
         module = SamModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, params_np)
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -577,3 +580,171 @@ class SAM:
             sel = order[start:start + capacity]
             masks[sel] = self.segment_boxes(images[sel], boxes01[sel], **kw)[0]
         return masks, frame_valid
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint conversion: mobile_sam.pt (segment-anything naming) and HF
+# facebook/sam-vit-*
+# ---------------------------------------------------------------------------
+_CONV_T = (2, 3, 0, 1)  # torch ConvTranspose2d (in, out, kh, kw) -> flax (kh, kw, in, out)
+
+
+def _dec_attn(sd, name):
+    return {p: dense(sd, f"{name}.{p}") for p in ("q_proj", "k_proj", "v_proj", "out_proj")}
+
+
+def _two_way_layer(sd, p, norms):
+    """A mask-decoder transformer layer; ``norms`` names its four norms."""
+    return {
+        "self_attn": _dec_attn(sd, f"{p}.self_attn"),
+        "ln1": norm(sd, f"{p}.{norms[0]}"),
+        "cross_t2i": _dec_attn(sd, f"{p}.cross_attn_token_to_image"),
+        "ln2": norm(sd, f"{p}.{norms[1]}"),
+        "mlp_lin1": dense(sd, f"{p}.mlp.lin1"),
+        "mlp_lin2": dense(sd, f"{p}.mlp.lin2"),
+        "ln3": norm(sd, f"{p}.{norms[2]}"),
+        "cross_i2t": _dec_attn(sd, f"{p}.cross_attn_image_to_token"),
+        "ln4": norm(sd, f"{p}.{norms[3]}"),
+    }
+
+
+def _prompt_tree(sd, point_embed: str, gaussian: str) -> Dict[str, Any]:
+    return {
+        "prompt": {"point_embed": leaf(np.concatenate([sd[f"{point_embed}.{i}.weight"] for i in range(4)], axis=0))},
+        "no_mask_embed": leaf(sd["prompt_encoder.no_mask_embed.weight"][0]),
+        "shared_pe": {"gaussian": leaf(sd[gaussian])},
+    }
+
+
+def convert_mobile_sam(sd: Mapping[str, Any], cfg: SamConfig) -> Dict[str, Any]:
+    """A mobile_sam.pt state dict (the original segment-anything naming, not
+    HF's) -> JAX's SAM tree: the TinyViT encoder, the prompt encoder and the
+    mask decoder. The decoder's MLPs are ``layers.0..depth-1`` there and
+    ``proj_in``, ``layer{i}``, ``proj_out`` here."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    assert cfg.tinyvit is not None, "mobile_sam checkpoints carry a TinyViT encoder"
+    vis = convert_mobile_sam_encoder({k: v for k, v in sd.items() if k.startswith("image_encoder.")}, cfg.tinyvit)
+
+    def ff(name, depth):
+        out = {"proj_in": dense(sd, f"{name}.layers.0"), "proj_out": dense(sd, f"{name}.layers.{depth - 1}")}
+        for j in range(depth - 2):
+            out[f"layer{j}"] = dense(sd, f"{name}.layers.{j + 1}")
+        return out
+
+    md = "mask_decoder"
+    dec: Dict[str, Any] = {
+        "iou_token": leaf(sd[f"{md}.iou_token.weight"]),
+        "mask_tokens": leaf(sd[f"{md}.mask_tokens.weight"]),
+        "final_t2i": _dec_attn(sd, f"{md}.transformer.final_attn_token_to_image"),
+        "ln_final": norm(sd, f"{md}.transformer.norm_final_attn"),
+        "upscale_conv1": conv(sd, f"{md}.output_upscaling.0", bias=True, axes=_CONV_T),
+        "upscale_ln": norm(sd, f"{md}.output_upscaling.1"),
+        "upscale_conv2": conv(sd, f"{md}.output_upscaling.3", bias=True, axes=_CONV_T),
+        "iou_head": ff(f"{md}.iou_prediction_head", cfg.decoder.iou_head_depth),
+    }
+    for i in range(cfg.decoder.num_multimask_outputs + 1):
+        dec[f"hyper{i}"] = ff(f"{md}.output_hypernetworks_mlps.{i}", 3)
+    for i in range(cfg.decoder.layers):
+        dec[f"layer{i}"] = _two_way_layer(sd, f"{md}.transformer.layers.{i}", ("norm1", "norm2", "norm3", "norm4"))
+    return {"vision": vis, "decoder": dec,
+            **_prompt_tree(sd, "prompt_encoder.point_embeddings",
+                           "prompt_encoder.pe_layer.positional_encoding_gaussian_matrix")}
+
+
+def convert_hf_sam(sd: Mapping[str, Any], cfg: SamConfig) -> Dict[str, Any]:
+    """A HF SamModel state dict (facebook/sam-vit-*) -> JAX's ViT-det SAM tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    ve = "vision_encoder"
+    vis: Dict[str, Any] = {
+        "patch_embed": conv(sd, f"{ve}.patch_embed.projection"),
+        "pos_embed": leaf(sd[f"{ve}.pos_embed"][0]),
+        "neck_conv1": conv(sd, f"{ve}.neck.conv1", bias=False),
+        "neck_ln1": norm(sd, f"{ve}.neck.layer_norm1"),
+        "neck_conv2": conv(sd, f"{ve}.neck.conv2", bias=False),
+        "neck_ln2": norm(sd, f"{ve}.neck.layer_norm2"),
+    }
+    for i in range(cfg.vision.depth):
+        p = f"{ve}.layers.{i}"
+        vis[f"block{i}"] = {
+            "ln1": norm(sd, f"{p}.layer_norm1"),
+            "ln2": norm(sd, f"{p}.layer_norm2"),
+            "attn": {
+                "qkv": dense(sd, f"{p}.attn.qkv"),
+                "proj": dense(sd, f"{p}.attn.proj"),
+                "rel_pos_h": leaf(sd[f"{p}.attn.rel_pos_h"]),
+                "rel_pos_w": leaf(sd[f"{p}.attn.rel_pos_w"]),
+            },
+            "mlp_fc1": dense(sd, f"{p}.mlp.lin1"),
+            "mlp_fc2": dense(sd, f"{p}.mlp.lin2"),
+        }
+    md = "mask_decoder"
+    dec: Dict[str, Any] = {
+        "iou_token": leaf(sd[f"{md}.iou_token.weight"]),
+        "mask_tokens": leaf(sd[f"{md}.mask_tokens.weight"]),
+        "final_t2i": _dec_attn(sd, f"{md}.transformer.final_attn_token_to_image"),
+        "ln_final": norm(sd, f"{md}.transformer.layer_norm_final_attn"),
+        "upscale_conv1": conv(sd, f"{md}.upscale_conv1", bias=True, axes=_CONV_T),
+        "upscale_ln": norm(sd, f"{md}.upscale_layer_norm"),
+        "upscale_conv2": conv(sd, f"{md}.upscale_conv2", bias=True, axes=_CONV_T),
+        "iou_head": {"proj_in": dense(sd, f"{md}.iou_prediction_head.proj_in"),
+                     "proj_out": dense(sd, f"{md}.iou_prediction_head.proj_out")},
+    }
+    for j in range(cfg.decoder.iou_head_depth - 2):
+        dec["iou_head"][f"layer{j}"] = dense(sd, f"{md}.iou_prediction_head.layers.{j}")
+    for i in range(cfg.decoder.num_multimask_outputs + 1):
+        h = f"{md}.output_hypernetworks_mlps.{i}"
+        dec[f"hyper{i}"] = {"proj_in": dense(sd, f"{h}.proj_in"), "proj_out": dense(sd, f"{h}.proj_out"),
+                            "layer0": dense(sd, f"{h}.layers.0")}
+    for i in range(cfg.decoder.layers):
+        dec[f"layer{i}"] = _two_way_layer(sd, f"{md}.transformer.layers.{i}",
+                                          ("layer_norm1", "layer_norm2", "layer_norm3", "layer_norm4"))
+    return {"vision": vis, "decoder": dec,
+            **_prompt_tree(sd, "prompt_encoder.point_embed", "shared_image_embedding.positional_embedding")}
+
+
+def expected_mobile_sam_checkpoint_keys(cfg: SamConfig) -> Dict[str, Tuple[int, ...]]:
+    """Key -> shape table of a whole mobile_sam.pt as ``convert_mobile_sam``
+    reads it: ``expected_mobile_sam_keys`` under ``image_encoder.``, then
+    the mask decoder and the prompt encoder."""
+    assert cfg.tinyvit is not None, "mobile_sam checkpoints carry a TinyViT encoder"
+    keys = {f"image_encoder.{k}": s for k, s in expected_mobile_sam_keys(cfg.tinyvit).items()}
+    dc = cfg.decoder
+    d, dd, m, md = dc.hidden, dc.hidden // dc.downsample_rate, dc.num_multimask_outputs + 1, "mask_decoder"
+
+    def pair(name, shape):
+        keys[f"{name}.weight"], keys[f"{name}.bias"] = shape, shape[:1]
+
+    def attn(name, internal):
+        for p in ("q_proj", "k_proj", "v_proj"):
+            pair(f"{name}.{p}", (internal, d))
+        pair(f"{name}.out_proj", (d, internal))
+
+    keys[f"{md}.iou_token.weight"] = (1, d)
+    keys[f"{md}.mask_tokens.weight"] = (m, d)
+    for i in range(dc.layers):
+        p = f"{md}.transformer.layers.{i}"
+        attn(f"{p}.self_attn", d)
+        attn(f"{p}.cross_attn_token_to_image", dd)
+        attn(f"{p}.cross_attn_image_to_token", dd)
+        for j in range(1, 5):
+            pair(f"{p}.norm{j}", (d,))
+        pair(f"{p}.mlp.lin1", (dc.mlp_dim, d))
+        pair(f"{p}.mlp.lin2", (d, dc.mlp_dim))
+    attn(f"{md}.transformer.final_attn_token_to_image", dd)
+    pair(f"{md}.transformer.norm_final_attn", (d,))
+    keys[f"{md}.output_upscaling.0.weight"], keys[f"{md}.output_upscaling.0.bias"] = (d, d // 4, 2, 2), (d // 4,)
+    pair(f"{md}.output_upscaling.1", (d // 4,))
+    keys[f"{md}.output_upscaling.3.weight"], keys[f"{md}.output_upscaling.3.bias"] = (d // 4, d // 8, 2, 2), (d // 8,)
+    for i in range(m):
+        p = f"{md}.output_hypernetworks_mlps.{i}"
+        pair(f"{p}.layers.0", (d, d))
+        pair(f"{p}.layers.1", (d, d))
+        pair(f"{p}.layers.2", (d // 8, d))
+    widths = [d] + [dc.iou_head_hidden] * (dc.iou_head_depth - 1) + [m]
+    for j in range(dc.iou_head_depth):
+        pair(f"{md}.iou_prediction_head.layers.{j}", (widths[j + 1], widths[j]))
+    for i in range(4):
+        keys[f"prompt_encoder.point_embeddings.{i}.weight"] = (1, d)
+    keys["prompt_encoder.no_mask_embed.weight"] = (1, d)
+    keys["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = (2, cfg.pe_dim)
+    return keys

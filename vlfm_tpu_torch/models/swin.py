@@ -12,19 +12,20 @@ port's flax-style ``LayerNorm`` (f32 statistics, promoted output), GELU is
 the exact erf form, and the attention softmax is f32. Submodules carry the
 flax scope names (``patch_embed``, ``s{stage}_b{block}.attn.query``,
 ``merge{stage}.reduction``, ``out_norm{stage}``), so a JAX tree loads leaf
-for leaf through ``params.state_dict_from_jax_params``.
+for leaf through ``params.load_jax_params_``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlfm_tpu_torch.models.hf_convert import conv, dense, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm
 from vlfm_tpu_torch.models.tinyvit import conv_nhwc
 
@@ -177,22 +178,30 @@ class PatchMerging(nn.Module):
 
 
 class SwinBackbone(nn.Module):
-    def __init__(self, cfg: SwinConfig, *, device=None):
+    """``out_stages`` (default all) are the stages whose normed features
+    the caller reads; only they have an ``out_norm``, as HF's backbone
+    keeps a norm for its ``out_features`` only, and the others' features
+    come back as None."""
+
+    def __init__(self, cfg: SwinConfig, out_stages: Optional[Sequence[int]] = None, *, device=None):
         super().__init__()
         self.cfg = c = cfg
+        self.out_stages = tuple(range(len(c.depths)) if out_stages is None else out_stages)
         self.patch_embed = nn.Conv2d(3, c.embed_dim, c.patch_size, c.patch_size, device=device)
         self.embed_norm = LayerNorm(c.embed_dim, c.eps, device=device)
         dim = c.embed_dim
         for si, depth in enumerate(c.depths):
             for bi in range(depth):
                 self.add_module(f"s{si}_b{bi}", SwinBlock(c, dim, c.heads[si], bi % 2 == 1, device=device))
-            self.add_module(f"out_norm{si}", LayerNorm(dim, c.eps, device=device))
+            if si in self.out_stages:
+                self.add_module(f"out_norm{si}", LayerNorm(dim, c.eps, device=device))
             if si < len(c.depths) - 1:
                 self.add_module(f"merge{si}", PatchMerging(c, dim, device=device))
                 dim *= 2
 
-    def forward(self, images: torch.Tensor) -> List[torch.Tensor]:
-        """(B, H, W, 3) -> per-stage NHWC feature maps (normed)."""
+    def forward(self, images: torch.Tensor) -> List[Optional[torch.Tensor]]:
+        """(B, H, W, 3) -> per-stage NHWC feature maps (normed), None for a
+        stage not in ``out_stages``."""
         c = self.cfg
         p = c.patch_size
         (t, bt), (l, r) = (same_padding(n, p, p) for n in images.shape[1:3])
@@ -202,7 +211,43 @@ class SwinBackbone(nn.Module):
         for si, depth in enumerate(c.depths):
             for bi in range(depth):
                 x = getattr(self, f"s{si}_b{bi}")(x)
-            feats.append(getattr(self, f"out_norm{si}")(x))
+            feats.append(getattr(self, f"out_norm{si}")(x) if si in self.out_stages else None)
             if si < len(c.depths) - 1:
                 x = getattr(self, f"merge{si}")(x)
         return feats
+
+
+# ---------------------------------------------------------------------------
+# HF conversion (SwinBackbone layout)
+# ---------------------------------------------------------------------------
+def convert_hf_swin(sd: Mapping[str, Any], cfg: SwinConfig) -> Dict[str, Any]:
+    """A HF SwinBackbone state dict -> JAX's Swin tree."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    p: Dict[str, Any] = {
+        "patch_embed": conv(sd, "embeddings.patch_embeddings.projection", bias=True),
+        "embed_norm": norm(sd, "embeddings.norm"),
+    }
+    for si, depth in enumerate(cfg.depths):
+        for bi in range(depth):
+            b = f"encoder.layers.{si}.blocks.{bi}"
+            p[f"s{si}_b{bi}"] = {
+                "ln1": norm(sd, f"{b}.layernorm_before"),
+                "ln2": norm(sd, f"{b}.layernorm_after"),
+                "attn": {
+                    "query": dense(sd, f"{b}.attention.self.query", bias=None),
+                    "key": dense(sd, f"{b}.attention.self.key", bias=None),
+                    "value": dense(sd, f"{b}.attention.self.value", bias=None),
+                    "out": dense(sd, f"{b}.attention.output.dense", bias=None),
+                    "rel_bias_table": leaf(sd[f"{b}.attention.self.relative_position_bias_table"]),
+                },
+                "mlp_fc1": dense(sd, f"{b}.intermediate.dense", bias=None),
+                "mlp_fc2": dense(sd, f"{b}.output.dense", bias=None),
+            }
+        if si < len(cfg.depths) - 1:
+            p[f"merge{si}"] = {
+                "norm": norm(sd, f"encoder.layers.{si}.downsample.norm"),
+                "reduction": dense(sd, f"encoder.layers.{si}.downsample.reduction", bias=False),
+            }
+        if f"hidden_states_norms.stage{si + 1}.weight" in sd:
+            p[f"out_norm{si}"] = norm(sd, f"hidden_states_norms.stage{si + 1}")
+    return p

@@ -25,15 +25,17 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 from functools import lru_cache
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import kernel, leaf
 from vlfm_tpu_torch.models.layers import Dense, Norm, merge_heads, promoted, split_heads
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.precision import exact_f32
 
 
@@ -264,7 +266,7 @@ class T5VQA:
         """Load a ``vlfm_tpu`` T5 parameter tree given as numpy arrays. Every
         parameter must be present and every shape must match."""
         module = T5Module(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, params_np)
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -288,3 +290,54 @@ class T5VQA:
         """The reference's veto test, answer.lower().startswith('yes')
         (base_objectnav_policy.py:334): the first token is the yes token."""
         return generated[:, 0] == yes_token_id
+
+
+# ---------------------------------------------------------------------------
+# HF conversion (google/flan-t5-* layout)
+# ---------------------------------------------------------------------------
+def convert_hf_t5(sd: Mapping[str, Any], cfg: T5Config) -> Dict[str, Any]:
+    """A HF T5ForConditionalGeneration state dict -> JAX's T5 tree (no
+    biases; the first block of each stack holds the relative-position
+    bias table)."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+
+    def w(name):
+        return {"kernel": kernel(sd[f"{name}.weight"])}
+
+    def scale(name):
+        return {"scale": leaf(sd[f"{name}.weight"])}
+
+    def attn(prefix, has_bias):
+        out = {k: w(f"{prefix}.{k}") for k in ("q", "k", "v", "o")}
+        if has_bias:
+            out["rel_bias"] = leaf(sd[f"{prefix}.relative_attention_bias.weight"])
+        return out
+
+    def ffn(prefix):
+        return {k: w(f"{prefix}.DenseReluDense.{k}") for k in ("wi_0", "wi_1", "wo")}
+
+    p: Dict[str, Any] = {
+        "embed": {"embedding": leaf(sd["shared.weight"])},
+        "enc_final": scale("encoder.final_layer_norm"),
+        "dec_final": scale("decoder.final_layer_norm"),
+        "lm_head": w("lm_head"),
+    }
+    for i in range(cfg.enc_layers):
+        b = f"encoder.block.{i}"
+        p[f"enc{i}"] = {
+            "self_attn": attn(f"{b}.layer.0.SelfAttention", i == 0),
+            "ln_self": scale(f"{b}.layer.0.layer_norm"),
+            "ffn": ffn(f"{b}.layer.1"),
+            "ln_ffn": scale(f"{b}.layer.1.layer_norm"),
+        }
+    for i in range(cfg.dec_layers):
+        b = f"decoder.block.{i}"
+        p[f"dec{i}"] = {
+            "self_attn": attn(f"{b}.layer.0.SelfAttention", i == 0),
+            "ln_self": scale(f"{b}.layer.0.layer_norm"),
+            "cross_attn": attn(f"{b}.layer.1.EncDecAttention", False),
+            "ln_cross": scale(f"{b}.layer.1.layer_norm"),
+            "ffn": ffn(f"{b}.layer.2"),
+            "ln_ffn": scale(f"{b}.layer.2.layer_norm"),
+        }
+    return p

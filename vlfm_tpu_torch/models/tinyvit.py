@@ -34,13 +34,14 @@ parameters give an f32 embedding, as in JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from vlfm_tpu_torch.models.hf_convert import dense, kernel, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm
 from vlfm_tpu_torch.ops.conv_fused import mbconv_chain
 
@@ -212,7 +213,7 @@ class TinyViTBlock(nn.Module):
 class TinyViT(nn.Module):
     """MobileSAM image encoder with the SAM neck: (B, S, S, 3) normalized
     images -> (B, S/16, S/16, out_channels). Submodules carry the flax
-    scope names, so ``params.state_dict_from_jax_params`` loads a JAX tree."""
+    scope names, so ``params.load_jax_params_`` loads a JAX tree."""
 
     def __init__(self, cfg: TinyViTConfig, *, device=None):
         super().__init__()
@@ -258,3 +259,107 @@ def chain_launches(cfg: TinyViTConfig) -> int:
     MBConvs and the stride-1 merge into the last stage (3 for
     tiny_vit_5m)."""
     return cfg.depths[0] + 1
+
+
+# ---------------------------------------------------------------------------
+# mobile_sam checkpoint conversion (BatchNorms folded into the convs)
+# ---------------------------------------------------------------------------
+def _fold_bn(sd, conv_name, bn_name):
+    """A torch Conv2d (no bias) and its BatchNorm2d -> flax conv kernel and
+    bias, folded in numpy in the checkpoint's dtype, as JAX folds them."""
+    w = np.asarray(sd[f"{conv_name}.weight"])  # (out, in/groups, kh, kw)
+    gamma = np.asarray(sd[f"{bn_name}.weight"])
+    beta = np.asarray(sd[f"{bn_name}.bias"])
+    mean = np.asarray(sd[f"{bn_name}.running_mean"])
+    var = np.asarray(sd[f"{bn_name}.running_var"])
+    scale = gamma / np.sqrt(var + 1e-5)
+    w = w * scale[:, None, None, None]
+    b = beta - mean * scale
+    return {"conv": {"kernel": kernel(w), "bias": leaf(b)}}
+
+
+def _conv_bn3(sd, p):
+    return {f"conv{j}": _fold_bn(sd, f"{p}.conv{j}.c", f"{p}.conv{j}.bn") for j in (1, 2, 3)}
+
+
+def convert_mobile_sam_encoder(sd: Mapping[str, Any], cfg: TinyViTConfig) -> Dict[str, Any]:
+    """mobile_sam's TinyViT state dict (the ``image_encoder.*`` keys of the
+    published mobile_sam.pt, or a bare tiny_vit state dict) -> JAX's TinyViT
+    tree, BatchNorms folded."""
+    sd = {k.removeprefix("image_encoder."): v for k, v in sd.items()}
+    out: Dict[str, Any] = {
+        "patch_embed1": _fold_bn(sd, "patch_embed.seq.0.c", "patch_embed.seq.0.bn"),
+        "patch_embed2": _fold_bn(sd, "patch_embed.seq.2.c", "patch_embed.seq.2.bn"),
+        "neck_conv1": {"kernel": kernel(sd["neck.0.weight"])},
+        "neck_ln1": norm(sd, "neck.1"),
+        "neck_conv2": {"kernel": kernel(sd["neck.2.weight"])},
+        "neck_ln2": norm(sd, "neck.3"),
+    }
+    for i in range(cfg.depths[0]):  # stage 0: layers.0 is the ConvLayer of MBConvs
+        out[f"stage0_block{i}"] = _conv_bn3(sd, f"layers.0.blocks.{i}")
+    for s in range(1, len(cfg.depths)):
+        out[f"merge{s}"] = _conv_bn3(sd, f"layers.{s - 1}.downsample")  # on the preceding layer
+        for i in range(cfg.depths[s]):
+            b = f"layers.{s}.blocks.{i}"
+            out[f"stage{s}_block{i}"] = {
+                "attn": {
+                    "norm": norm(sd, f"{b}.attn.norm"),
+                    "qkv": dense(sd, f"{b}.attn.qkv"),
+                    "proj": dense(sd, f"{b}.attn.proj"),
+                    "attention_biases": leaf(sd[f"{b}.attn.attention_biases"]),
+                },
+                "local_conv": _fold_bn(sd, f"{b}.local_conv.c", f"{b}.local_conv.bn"),
+                "mlp_norm": norm(sd, f"{b}.mlp.norm"),
+                "mlp_fc1": dense(sd, f"{b}.mlp.fc1"),
+                "mlp_fc2": dense(sd, f"{b}.mlp.fc2"),
+            }
+    return out
+
+
+def expected_mobile_sam_keys(cfg: TinyViTConfig) -> Dict[str, Tuple[int, ...]]:
+    """Key -> shape table of the mobile_sam TinyViT state dict that
+    ``convert_mobile_sam_encoder`` consumes."""
+    keys: Dict[str, Tuple[int, ...]] = {}
+
+    def conv_bn(name, cin, cout, k, groups=1):
+        keys[f"{name}.c.weight"] = (cout, cin // groups, k, k)
+        for suffix in ("weight", "bias", "running_mean", "running_var"):
+            keys[f"{name}.bn.{suffix}"] = (cout,)
+
+    def pair(name, shape):
+        keys[f"{name}.weight"], keys[f"{name}.bias"] = shape, shape[:1]
+
+    n0 = cfg.embed_dims[0]
+    conv_bn("patch_embed.seq.0", 3, n0 // 2, 3)
+    conv_bn("patch_embed.seq.2", n0 // 2, n0, 3)
+    hidden = int(n0 * cfg.mbconv_expand)
+    for i in range(cfg.depths[0]):
+        p = f"layers.0.blocks.{i}"
+        conv_bn(f"{p}.conv1", n0, hidden, 1)
+        conv_bn(f"{p}.conv2", hidden, hidden, 3, groups=hidden)
+        conv_bn(f"{p}.conv3", hidden, n0, 1)
+    for s in range(1, len(cfg.depths)):
+        cin, cout = cfg.embed_dims[s - 1], cfg.embed_dims[s]
+        p = f"layers.{s - 1}.downsample"
+        conv_bn(f"{p}.conv1", cin, cout, 1)
+        conv_bn(f"{p}.conv2", cout, cout, 3, groups=cout)
+        conv_bn(f"{p}.conv3", cout, cout, 1)
+        heads = cfg.num_heads[s]
+        key_dim = cout // heads  # attn_ratio 1: v has key_dim too
+        n_offsets = int(attention_bias_idxs(cfg.window_sizes[s]).max()) + 1
+        mlp = int(cout * cfg.mlp_ratio)
+        for i in range(cfg.depths[s]):
+            b = f"layers.{s}.blocks.{i}"
+            pair(f"{b}.attn.norm", (cout,))
+            pair(f"{b}.attn.qkv", (heads * 3 * key_dim, cout))
+            pair(f"{b}.attn.proj", (cout, heads * key_dim))
+            keys[f"{b}.attn.attention_biases"] = (heads, n_offsets)
+            conv_bn(f"{b}.local_conv", cout, cout, 3, groups=cout)
+            pair(f"{b}.mlp.norm", (cout,))
+            pair(f"{b}.mlp.fc1", (mlp, cout))
+            pair(f"{b}.mlp.fc2", (cout, mlp))
+    keys["neck.0.weight"] = (cfg.out_channels, cfg.embed_dims[-1], 1, 1)
+    pair("neck.1", (cfg.out_channels,))
+    keys["neck.2.weight"] = (cfg.out_channels, cfg.out_channels, 3, 3)
+    pair("neck.3", (cfg.out_channels,))
+    return keys

@@ -23,6 +23,15 @@ class WordPieceTokenizer:
         self.pad_id = vocab.get("[PAD]", 0)
         self.unk_id = vocab.get("[UNK]", 0)
 
+    @classmethod
+    def from_vocab_file(cls, path: str, max_len: int = 32) -> "WordPieceTokenizer":
+        """A BERT ``vocab.txt``: one token per line, its id the line number."""
+        vocab = {}
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                vocab[line.rstrip("\n")] = i
+        return cls(vocab, max_len)
+
     @staticmethod
     def _basic_tokenize(text: str) -> List[str]:
         out: List[str] = []

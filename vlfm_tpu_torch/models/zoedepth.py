@@ -32,7 +32,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,8 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.device import default_device
+from vlfm_tpu_torch.models.hf_convert import conv, dense, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, LayerNorm, merge_heads, promoted, split_heads
-from vlfm_tpu_torch.models.params import init_random_, state_dict_from_jax_params
+from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.precision import exact_f32
 from vlfm_tpu_torch.models.tinyvit import conv_nhwc
 from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
@@ -627,9 +628,11 @@ class ZoeDepth:
     def from_jax_params(cls, cfg: ZoeDepthConfig, params_np: Mapping[str, Any],
                         device: torch.device | str = default_device()) -> "ZoeDepth":
         """Load a ``vlfm_tpu`` ZoeDepth parameter tree given as numpy
-        arrays. Every parameter must be present and every shape must match."""
+        arrays. Every parameter must be present and every shape must match;
+        the one entry a converted checkpoint has and the module never runs
+        is left out (``without_unused_residual``)."""
         module = ZoeDepthModule(cfg, device=device)
-        module.load_state_dict(state_dict_from_jax_params(params_np), strict=True)
+        load_jax_params_(module, without_unused_residual(params_np))
         return cls(cfg, module)
 
     @torch.inference_mode()
@@ -650,3 +653,99 @@ class ZoeDepth:
         x = resize_bilinear((rgb_uint8.to(torch.float32) / 255.0 - mean) / std, s, s)
         metric = resize_bilinear_hw(self.predict(x), rgb_uint8.shape[1], rgb_uint8.shape[2])
         return torch.clamp((metric - min_depth) / (max_depth - min_depth), 0.0, 1.0)
+
+
+# ---------------------------------------------------------------------------
+# HF conversion (ZoeDepthForDepthEstimation layout)
+# ---------------------------------------------------------------------------
+def without_unused_residual(params_np: Mapping[str, Any]) -> Mapping[str, Any]:
+    """``params_np`` without ``neck.fusion0.res1``: HF's first fusion layer
+    holds a residual unit it never runs (there is no coarser stage to add),
+    so ``convert_hf_zoedepth`` carries it, as JAX's does (flax ignores it),
+    and the port's module has no such parameters."""
+    neck = params_np.get("neck", {})
+    if "res1" not in neck.get("fusion0", {}):
+        return params_np
+    fusion0 = {k: v for k, v in neck["fusion0"].items() if k != "res1"}
+    return {**params_np, "neck": {**neck, "fusion0": fusion0}}
+
+
+def _conv2(sd, name):
+    return {"conv1": conv(sd, f"{name}.conv1"), "conv2": conv(sd, f"{name}.conv2")}
+
+
+def _clb(sd, name):
+    return {"mlp1": conv(sd, f"{name}.mlp.0"), "mlp2": conv(sd, f"{name}.mlp.2")}
+
+
+def convert_hf_zoedepth(sd: Mapping[str, Any], cfg: ZoeDepthConfig) -> Dict[str, Any]:
+    """A HF ZoeDepthForDepthEstimation state dict -> JAX's ZoeDepth tree.
+    Biases are taken where the state dict has them; a ConvTranspose2d's
+    (in, out, kh, kw) weight is laid out as a conv's, as flax's
+    ``transpose_kernel=True`` reads it."""
+    bb = "backbone"
+    backbone: Dict[str, Any] = {
+        "patch_embed": conv(sd, f"{bb}.embeddings.patch_embeddings.projection"),
+        "cls_token": leaf(sd[f"{bb}.embeddings.cls_token"]),
+    }
+    for i in range(cfg.beit.layers):
+        pre = f"{bb}.encoder.layer.{i}"
+        att = f"{pre}.attention.attention"
+        backbone[f"layer{i}"] = {
+            "ln_before": norm(sd, f"{pre}.layernorm_before"),
+            "q": dense(sd, f"{att}.query", bias=None),
+            "k": dense(sd, f"{att}.key", bias=False),
+            "v": dense(sd, f"{att}.value", bias=None),
+            "rel_pos_table": leaf(sd[f"{att}.relative_position_bias.relative_position_bias_table"]),
+            "proj": dense(sd, f"{pre}.attention.output.dense", bias=None),
+            "lambda_1": leaf(sd[f"{pre}.lambda_1"]),
+            "lambda_2": leaf(sd[f"{pre}.lambda_2"]),
+            "ln_after": norm(sd, f"{pre}.layernorm_after"),
+            "fc1": dense(sd, f"{pre}.intermediate.dense", bias=None),
+            "fc2": dense(sd, f"{pre}.output.dense", bias=None),
+        }
+    neck: Dict[str, Any] = {"reassemble": {}}
+    ra = "neck.reassemble_stage"
+    for i in range(4):
+        neck["reassemble"][f"readout{i}"] = dense(sd, f"{ra}.readout_projects.{i}.0", bias=None)
+        neck["reassemble"][f"proj{i}"] = conv(sd, f"{ra}.layers.{i}.projection")
+        if f"{ra}.layers.{i}.resize.weight" in sd:  # a ConvTranspose2d where the factor is above 1
+            neck["reassemble"][f"resize{i}"] = conv(sd, f"{ra}.layers.{i}.resize")
+        neck[f"conv{i}"] = conv(sd, f"neck.convs.{i}", bias=False)
+    for j in range(4):
+        pre = f"neck.fusion_stage.layers.{j}"
+        neck[f"fusion{j}"] = {
+            "proj": conv(sd, f"{pre}.projection"),
+            "res1": {"conv1": conv(sd, f"{pre}.residual_layer1.convolution1"),
+                     "conv2": conv(sd, f"{pre}.residual_layer1.convolution2")},
+            "res2": {"conv1": conv(sd, f"{pre}.residual_layer2.convolution1"),
+                     "conv2": conv(sd, f"{pre}.residual_layer2.convolution2")},
+        }
+    mh: Dict[str, Any] = {"conv2": conv(sd, "metric_head.conv2")}
+    mh["seed_projector"] = _conv2(sd, "metric_head.seed_projector")
+    for i in range(4):
+        mh[f"projector{i}"] = _conv2(sd, f"metric_head.projectors.{i}")
+    if len(cfg.bin_configurations) > 1:
+        pt: Dict[str, Any] = {"embed": conv(sd, "metric_head.patch_transformer.embedding_convPxP")}
+        for i in range(4):
+            pre = f"metric_head.patch_transformer.transformer_encoder.{i}"
+            for key, name in (("q", "self_attn.query"), ("k", "self_attn.key"), ("v", "self_attn.value"),
+                              ("out", "self_attn.out_proj"), ("fc1", "linear1"), ("fc2", "linear2")):
+                pt[f"l{i}_{key}"] = dense(sd, f"{pre}.{name}", bias=None)
+            pt[f"l{i}_ln1"] = norm(sd, f"{pre}.norm1")
+            pt[f"l{i}_ln2"] = norm(sd, f"{pre}.norm2")
+        mh["patch_transformer"] = pt
+        mh["mlp_classifier1"] = dense(sd, "metric_head.mlp_classifier.linear1", bias=None)
+        mh["mlp_classifier2"] = dense(sd, "metric_head.mlp_classifier.linear2", bias=None)
+        for name, *_ in cfg.bin_configurations:
+            mh[f"seed_bin_regressor_{name}"] = _conv2(sd, f"metric_head.seed_bin_regressors.{name}")
+            for i in range(4):
+                mh[f"attractor{i}_{name}"] = _conv2(sd, f"metric_head.attractors.{name}.{i}")
+            mh[f"conditional_log_binomial_{name}"] = _clb(sd, f"metric_head.conditional_log_binomial.{name}")
+    else:
+        mh["seed_bin_regressor"] = _conv2(sd, "metric_head.seed_bin_regressor")
+        for i in range(4):
+            mh[f"attractor{i}"] = _conv2(sd, f"metric_head.attractors.{i}")
+        mh["conditional_log_binomial"] = _clb(sd, "metric_head.conditional_log_binomial")
+    relative = {f"conv{j}": conv(sd, f"relative_head.conv{j}") for j in (1, 2, 3)}
+    return {"backbone": backbone, "neck": neck, "relative_head": relative, "metric_head": mh}

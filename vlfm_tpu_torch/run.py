@@ -11,7 +11,8 @@ runs on the card, or on the CPU with ``--cpu``. Backends:
   (``runner/sim_farm.py``).
 - ``--backend habitat``: needs habitat-lab; builds a habitat env and
   drives it through ``HabitatVLFMAgent`` over ``FullStackPerception``
-  (tiny random models) in ``runner/habitat_eval.evaluate``.
+  (the ``--weights-dir`` bundle's models, else tiny random ones) in
+  ``runner/habitat_eval.evaluate``.
 - ``--backend reality``: needs the Spot SDK, so it exits with a message, as
   JAX's does: the robot path is ``reality/envs.ObjectNavEnv`` over a
   ``BDSWRobot`` (``FakeRobot`` for dry runs) driven by
@@ -19,7 +20,10 @@ runs on the card, or on the CPU with ``--cpu``. Backends:
 
 ``--pointnav-weights`` loads the reference's PointNav checkpoint (a
 ``.pth`` with the upstream parameter names) as it is. ``--weights-dir``
-(the JAX package's converted serving bundles) is not supported here.
+serves a bundle written by ``python -m vlfm_tpu_torch.convert_checkpoints``
+(``runner/weights.py``) in the habitat backend and in the synthetic
+backend's ``--farm``: the full stack over the streamed frames. The JAX
+package's orbax bundles are refused with a message.
 """
 
 from __future__ import annotations
@@ -65,8 +69,8 @@ def main() -> None:
     p.add_argument("--pointnav-weights", default=None, help="the reference's PointNav .pth, loaded as it is")
     p.add_argument(
         "--weights-dir", default=None,
-        help="the JAX package's converted serving bundle; not supported by "
-        "this package (tiny random models serve instead)",
+        help="serving bundle from python -m vlfm_tpu_torch.convert_checkpoints "
+        "(habitat backend, synthetic --farm)",
     )
     p.add_argument(
         "--habitat-config", default=None,
@@ -79,11 +83,12 @@ def main() -> None:
     args = p.parse_args()
 
     if args.weights_dir:
-        raise SystemExit(
-            "--weights-dir takes the JAX package's orbax serving bundles "
-            "(vlfm_tpu/runner/weights.py), which vlfm_tpu_torch does not read; "
-            "run without it for tiny random models, or use vlfm_tpu.run"
-        )
+        from vlfm_tpu_torch.runner.weights import BundleError, read_manifest
+
+        try:
+            read_manifest(args.weights_dir)
+        except BundleError as e:
+            raise SystemExit(f"--weights-dir: {e}") from None
     if args.backend == "reality":
         raise SystemExit(
             "reality backend requires the Boston Dynamics SDK; construct "
@@ -120,7 +125,12 @@ def main() -> None:
         from vlfm_tpu_torch.runner.full_stack import FullStackPerception
         from vlfm_tpu_torch.runner.habitat_eval import evaluate, make_habitat_env
 
-        perception = FullStackPerception(cfg, device=device)
+        if args.weights_dir:
+            from vlfm_tpu_torch.runner.weights import full_stack_from_bundle
+
+            perception = full_stack_from_bundle(cfg, args.weights_dir, device=device)
+        else:
+            perception = FullStackPerception(cfg, device=device)
         agent = HabitatVLFMAgent(cfg, spec, pointnav, perception, version=args.version, device=device)
         # One habitat.Env for the whole run; advance() moves it to the next
         # episode so the loop can claim by episode id before reset.
@@ -142,11 +152,16 @@ def main() -> None:
     if args.farm:
         from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
 
+        perception = None
+        if args.weights_dir:  # the bundle's model stack over the streamed synthetic RGBD
+            from vlfm_tpu_torch.runner.weights import full_stack_from_bundle
+
+            perception = full_stack_from_bundle(cfg, args.weights_dir, device=device)
         results_map, stats = run_episodes_farm(
             list(range(args.episodes)), lanes=args.farm, pointnav=pointnav,
             spec=spec, cfg=cfg, plan_name="two_room_plan", env_cfg=env_cfg,
             workers=args.farm_workers, version=args.version,
-            max_steps=args.max_steps, device=device,
+            max_steps=args.max_steps, perception=perception, device=device,
         )
         results = [results_map[s] for s in sorted(results_map)]
         print(
