@@ -9,7 +9,13 @@ Phases (any failure raises, and the script exits non-zero):
   2. LayerNorm kernel (K1) against its plain version at the main path's
      shapes, with CUDA-event timings of both and of ``F.layer_norm``, and
      the launch floor (an empty kernel, timed by the same method) beside
-     K1 and ``F.layer_norm`` at the robot path's B=1 shapes;
+     K1 and ``F.layer_norm`` at the robot path's B=1 shapes; K1's fused
+     entry (``add_layer_norm``: the residual add and the norm in one
+     launch) at its sites' shapes, y within one bf16 ulp of its plain
+     version and bit-equal to the add then K1, the kept sum bit-equal to
+     ``x + h``, timed beside its plain version, the add then K1 (the route
+     it replaced) and the add then ``F.layer_norm``; the host's cost per
+     call of each form;
   3. attention kernel (K3) against its plain version: every variant at the
      ViT-g shape (32, 16, 257, 88) in bf16, the main path's layout (q, k, v
      as views of the fused qkv projection) at B=32 and at the spin's 12
@@ -46,6 +52,12 @@ Phases (any failure raises, and the script exits non-zero):
      frame detects, so gated SAM runs all its passes); K1 and K2 launches
      are counted over this run; gated masks must match ungated ones;
  12. full-width detection timings: one pipeline call at B=8 and its parts;
+     then the fused route's equivalence: ViT-g at B=8 and B=1 and the
+     Q-Former's query branch on each, and one OWL-ViT detect at B=8 over
+     the COCO prompts, through the models (every add before a norm in
+     ``add_layer_norm``) and through an unfused composition written out
+     here (a PyTorch add, then K1), bit for bit, with K1's launches and
+     the fused ones counted; every path below prints its fused K1 share;
  13. the deformable gather kernel (K4) against its plain version at the
      GroundingDINO encoder's shape (B=8, Q = S = 13,294 over four levels)
      in the main path's f32 and in bf16 with grids over [-1.5, 1.5], in
@@ -114,8 +126,9 @@ Phases (any failure raises, and the script exits non-zero):
      then run_episodes_farm (2 spawned sim workers over the shared-memory
      ring, one dispatch over all 8 lanes) on phase 19's 16 open_room_plan
      episodes, oracle-scored and equal to phase 19's run_episodes_recycled
-     field for field, and with the full stack's perception (at most
-     FULL_FARM_STEPS steps an episode), once with f32
+     field for field, and with the full stack's perception on the first
+     FULL_FARM_EPISODES of them (at most FULL_FARM_STEPS steps an episode,
+     each past the spin), once with f32
      full-size records and once with the JAX bench's compressed transport
      (u16 half-size depth, half-size RGB, brought back to the camera grid
      on the card); all finish (env-steps/s, bytes put, the driver's time
@@ -243,6 +256,7 @@ from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping import value_map_io as VIO
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
+from vlfm_tpu_torch.models.blip2_itm import CLIP_MEAN as BLIP_MEAN, CLIP_STD as BLIP_STD
 from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
 from vlfm_tpu_torch.models.t5_vqa import bucket_table
 from vlfm_tpu_torch.models.zoedepth import ZoeDepth, ZoeDepthConfig
@@ -257,7 +271,7 @@ from vlfm_tpu_torch.models.grounding_dino import (
     GroundingDinoQueryAdapter,
     deformable_attentions,
 )
-from vlfm_tpu_torch.models.owl_vit import OwlViTDetConfig, OwlViTDetector
+from vlfm_tpu_torch.models.owl_vit import CLIP_MEAN, CLIP_STD, OwlViTDetConfig, OwlViTDetector, box_bias, quick_gelu
 from vlfm_tpu_torch.models.precision import cast_for_serving, exact_f32
 from vlfm_tpu_torch.models.sam import SAM, SamConfig, SamVisionEncoder
 from vlfm_tpu_torch.models.tinyvit import chain_launches
@@ -265,7 +279,7 @@ from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_ref, attention_tolerance, qkv_views
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance, plan_for
-from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.ops.norms import add_layer_norm, add_layer_norm_ref, bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear
 from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
@@ -330,11 +344,36 @@ LN_CASES = [
     (1 * 576, 768, torch.bfloat16, 1e-5),
 ]
 LN_ROBOT_SHAPES = ((257, 1408), (32, 768), (577, 768), (576, 768), (8, 512))  # phase 25's B=1 rows
+# The fused entry (add_layer_norm) at its sites' shapes: (site, rows, rows
+# of h (a position table repeats over the batch), D, dtype, eps, keep_sum:
+# a pre-norm site keeps the sum as the next residual, a post-norm site and a
+# last norm do not). The B=8 dispatch's ViT-g block first: it stands for
+# the entry in the JSON line.
+ADD_LN_CASES = [
+    ("ViT-g block add, B=8 dispatch", 8 * 257, 8 * 257, 1408, torch.bfloat16, 1e-6, True),
+    ("ViT-g block add, B=1 act", 257, 257, 1408, torch.bfloat16, 1e-6, True),
+    ("ViT-g block add, B=32 ITM", 32 * 257, 32 * 257, 1408, torch.bfloat16, 1e-6, True),
+    ("ViT-g position add, B=8", 8 * 257, 257, 1408, torch.bfloat16, 1e-6, True),
+    ("ViT-g post_ln, B=8", 8 * 257, 8 * 257, 1408, torch.bfloat16, 1e-6, False),
+    ("Q-Former post-norm, B=8", 8 * 32, 8 * 32, 768, torch.bfloat16, 1e-12, False),
+    ("Q-Former post-norm, B=1", 32, 32, 768, torch.bfloat16, 1e-12, False),
+    ("OWL-ViT vision layer add, B=8", 8 * 577, 8 * 577, 768, torch.bfloat16, 1e-5, True),
+    ("OWL-ViT vision layer add, B=1", 577, 577, 768, torch.bfloat16, 1e-5, True),
+    ("OWL-ViT text layer add, 80 COCO prompts", 80 * 8, 80 * 8, 512, torch.bfloat16, 1e-5, True),
+    ("OWL-ViT text layer add, one prompt", 8, 8, 512, torch.bfloat16, 1e-5, True),
+    ("OWL-ViT text position add, 80 prompts of 16 tokens", 80 * 16, 16, 512, torch.bfloat16, 1e-5, True),
+]
+HOST_CALLS = 200  # back-to-back calls per host-cost figure
 LN_F32_ATOL = 2e-5  # bf16: ops.norms.bf16_tolerance, one bf16 ulp of plain
 TINY_COS_ATOL = 1e-3
 LAUNCHES_TEXT = 25  # Q-Former text branch: embed_ln + 12 x (self_ln, ffn_text_ln)
 LAUNCHES_IMAGE = 110  # ViT-g 39 x 2 + post_ln, Q-Former 1 + 12 x 2 + 6 cross_ln
 ATTN_LAUNCHES_IMAGE = 39  # K3 once per ViT-g block; the Q-Former keeps plain attention
+# K1 launches that take the add before them into the launch (add_layer_norm):
+# all but the Q-Former's embed_ln (its text embeddings' add is cast first;
+# its queries have none).
+FUSED_TEXT = LAUNCHES_TEXT - 1
+FUSED_IMAGE = LAUNCHES_IMAGE - 1
 ATTN_LAUNCHES_TEXT = 0
 ATTN_SHAPE = (32, 16, 257, 88)  # ViT-g at B=32: batch, heads, tokens, head width
 ATTN_SPIN_SHAPE = (12, 16, 257, 88)  # ViT-g at the spin's 12 views
@@ -405,6 +444,8 @@ OPEN_TARGET = "fireplace"  # not a COCO class
 # merge_ln, one text encoding 12 x 2 + final_ln; a COCO target runs detect
 # twice (80 COCO prompts, then the open-vocabulary retry), another target once.
 LAUNCHES_DETECT = 27 + 25
+FUSED_DETECT = LAUNCHES_DETECT - 2  # all but the vision pass's layer0.ln1 (after pre_ln) and merge_ln (after a product)
+FUSED_STEP = FUSED_IMAGE + 2 * FUSED_DETECT  # a full-stack dispatch, a robot act: 209 of 214
 TINY_BOX_ATOL = 1e-4
 TINY_MASK_FLIPS = 1e-3  # f32: a pixel flips only where its logit is within ~1e-4 of 0
 GATED_MASK_FLIPS = 1e-2  # bf16: cuBLAS picks other GEMM tilings at 2 and 8 frames
@@ -443,7 +484,10 @@ OBJ_POINT_ATOL = 1e-5  # metres: phase 18, B=8 against B=1
 EPISODE_STEPS = 30  # phases 19-20: the 12-turn spin, then 18 steps
 PN_ATOL = 1e-4  # phase 19: PointNav's logits and h/c, B=8 against B=1 (cuDNN picks its algorithms per batch)
 FARM_EPISODES = 16  # phases 19-20: open_room_plan episodes on BATCH_LANES lanes
-FULL_FARM_STEPS = 20  # phase 20: the full stack's farms, steps per episode (the oracle farm's are EPISODE_STEPS)
+# phase 20: the full stack's farms run the first of the oracle farm's episodes, one per lane, each for
+# the 12-turn spin and 8 steps past it (the oracle farm's run EPISODE_STEPS)
+FULL_FARM_EPISODES = 8
+FULL_FARM_STEPS = 20
 FARM_WORKERS = 2  # phase 20: sim worker processes
 SAM_CAPACITY = 2  # phase 20: gated SAM's frames per pass
 VQA_CAPACITY = 8  # phases 21-22: veto slots per pass, 4 answer tokens (bench.py:565-575)
@@ -508,6 +552,18 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def with_fused(launches: dict, label: str, want: int | None = None) -> dict:
+    """``launches`` and ``layer_norm_fused``: how many of the path's K1
+    launches (counts set to 0 before it) took the add before them into the
+    launch (``add_layer_norm``), checked against ``want`` where the path's
+    model calls fix it."""
+    fused = add_layer_norm.launches
+    log(f"[{label}] K1 fused with the add before it: {fused} of {launches['layer_norm']} launches"
+        + ("" if want is None else f" (expect {want})"))
+    check(want is None or fused == want, f"{label}: fused K1 launch count")
+    return {**launches, "layer_norm_fused": fused}
 
 
 # --- phase 0 -----------------------------------------------------------------
@@ -585,33 +641,54 @@ def launch_floor_ms() -> float:
     return _median_ms(lambda: torch.cuda._sleep(0))
 
 
-def phase_layer_norm() -> dict:
+def ln_inputs(rows: int, d: int, dt: torch.dtype, gen) -> tuple:
+    x = (torch.randn(rows, d, generator=gen, device=DEV) * 2.0 + 0.5).to(dt)
+    scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=DEV)
+    bias = 0.1 * torch.randn(d, generator=gen, device=DEV)
+    return x, scale, bias
+
+
+def ln_error(got: torch.Tensor, want: torch.Tensor) -> tuple[float, bool, str]:
+    """(max abs error, within tolerance, the tolerance): f32 LN_F32_ATOL,
+    bf16 one bf16 ulp of the plain result."""
+    err = (got.float() - want.float()).abs()
+    if got.dtype == torch.float32:
+        return float(err.max()), float(err.max()) <= LN_F32_ATOL, f"max abs <= {LN_F32_ATOL}"
+    ratio = float((err / bf16_tolerance(want)).max())
+    return float(err.max()), ratio <= 1.0, f"each <= 1 bf16 ulp of plain, floor 1e-6 (max {ratio:.2f} of that)"
+
+
+def host_us(fn, calls: int = HOST_CALLS) -> float:
+    """Wall microseconds per call over ``calls`` back-to-back calls and one
+    synchronise: the host's cost of issuing a call wherever that exceeds
+    the device's time for it (every shape here at B=1)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls * 1e6
+
+
+def phase_layer_norm() -> tuple[dict, dict]:
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows_out = []
     floor = launch_floor_ms()
     for rows, d, dt, eps in LN_CASES:
-        x = (torch.randn(rows, d, generator=gen, device=DEV) * 2.0 + 0.5).to(dt)
-        scale = 1.0 + 0.1 * torch.randn(d, generator=gen, device=DEV)
-        bias = 0.1 * torch.randn(d, generator=gen, device=DEV)
+        x, scale, bias = ln_inputs(rows, d, dt, gen)
         got = layer_norm(x, scale, bias, eps)
         torch.cuda.synchronize()
         want = layer_norm_ref(x, scale, bias, eps)
         check(got.shape == want.shape and got.dtype == want.dtype, f"LN {rows}x{d} shape/dtype")
-        err = (got.float() - want.float()).abs()
-        max_abs = float(err.max())
-        if dt == torch.float32:
-            ok = max_abs <= LN_F32_ATOL
-            tol = f"max abs <= {LN_F32_ATOL}"
-        else:
-            ratio = float((err / bf16_tolerance(want)).max())
-            ok = ratio <= 1.0
-            tol = f"each <= 1 bf16 ulp of plain, floor 1e-6 (max {ratio:.2f} of that)"
+        max_abs, ok, tol = ln_error(got, want)
         ms = _median_ms(lambda: layer_norm(x, scale, bias, eps))
         plain_ms = _median_ms(lambda: layer_norm_ref(x, scale, bias, eps))
         sc, bi = scale.to(dt), bias.to(dt)
         library_ms = _median_ms(lambda: F.layer_norm(x, (d,), sc, bi, eps))
-        # x read once and y written once, plus the f32 scale and bias; about
-        # 9 f32 operations per element (two sums, centre, square, scale, shift)
+        # x read once and y written once (2 passes), plus the f32 scale and
+        # bias; about 9 f32 operations per element (two sums, centre,
+        # square, scale, shift)
         bound_ms, bound_by = bound(2 * x.numel() * x.element_size() + 8 * d, 9 * x.numel(), torch.float32)
         log(
             f"[layer_norm] {rows}x{d} {str(dt).split('.')[-1]} eps={eps:g}: max_abs_err={max_abs:.3e} "
@@ -621,6 +698,44 @@ def phase_layer_norm() -> dict:
         check(ok, f"layer_norm {rows}x{d} {dt} disagrees with its plain version")
         rows_out.append(dict(shape=(rows, d), max_abs_err=max_abs, ms=ms, plain_ms=plain_ms,
                              library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by))
+
+    fused_out = []
+    for site, rows, h_rows, d, dt, eps, keep in ADD_LN_CASES:
+        x, scale, bias = ln_inputs(rows, d, dt, gen)
+        x = x.reshape(rows // h_rows, h_rows, d)  # h: one (h_rows, d) table for each group of rows
+        h = (torch.randn(h_rows, d, generator=gen, device=DEV) * 3.0 + 1.0).to(dt)
+        got = add_layer_norm(x, h, scale, bias, eps, keep_sum=keep)
+        torch.cuda.synchronize()
+        s_got, y = got if keep else (None, got)
+        s_want, y_want = add_layer_norm_ref(x, h, scale, bias, eps, keep_sum=True)
+        max_abs, ok, tol = ln_error(y, y_want)
+        route = layer_norm(s_want, scale, bias, eps)  # today's route: the add, then the plain entry
+        same_as_route = bool(torch.equal(y, route))
+        sum_ok = s_got is None or bool(torch.equal(s_got, s_want))
+        ms = _median_ms(lambda: add_layer_norm(x, h, scale, bias, eps, keep_sum=keep))
+        plain_ms = _median_ms(lambda: add_layer_norm_ref(x, h, scale, bias, eps, keep_sum=keep))
+        route_ms = _median_ms(lambda: layer_norm(x + h, scale, bias, eps))
+        sc, bi = scale.to(dt), bias.to(dt)
+        library_ms = _median_ms(lambda: F.layer_norm(x + h, (d,), sc, bi, eps))
+        # x and h read once, y (and s, when kept) written once: 3 or 4
+        # passes (h's table once); the add and ~9 f32 operations per element
+        es = x.element_size()
+        n_bytes = (x.numel() * (3 if keep else 2) + h.numel()) * es + 8 * d
+        bound_ms, bound_by = bound(n_bytes, 10 * x.numel(), torch.float32)
+        log(
+            f"[add_layer_norm] {site}: {rows}x{d} (h {h_rows} rows) {str(dt).split('.')[-1]} eps={eps:g} "
+            f"keep_sum={keep}: y max_abs_err={max_abs:.3e} {tol} {'ok' if ok else 'FAIL'}, "
+            f"s bit-equal to x + h {sum_ok}, y bit-equal to x + h then K1 {same_as_route}; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, x + h then K1 {route_ms:.4f} ms, x + h then F.layer_norm {library_ms:.4f} ms, "
+            f"bound {bound_ms:.4f} ms ({bound_by}, {3 + keep if h_rows == rows else 2 + keep} passes)"
+        )
+        check(ok and sum_ok and same_as_route, f"add_layer_norm {site} disagrees with its plain version")
+        # No single PyTorch call adds and normalises: library_ms is null,
+        # and the two-call forms stand beside the kernel instead.
+        fused_out.append(dict(shape=(rows, d), site=site, keep_sum=keep, max_abs_err=max_abs, ms=ms,
+                              plain_ms=plain_ms, route_ms=route_ms, add_library_ms=library_ms, library_ms=None,
+                              bound_ms=bound_ms, bound_by=bound_by))
+
     floor = min(floor, launch_floor_ms())  # timed again at the end: the same moment as the cases
     small = [r for r in rows_out if r["shape"] in LN_ROBOT_SHAPES]
     log(f"[layer_norm] launch floor (an empty kernel, event to event, median of 50): {floor:.4f} ms; at the robot "
@@ -628,7 +743,124 @@ def phase_layer_norm() -> dict:
             f"{r['shape']} K1 {r['ms']:.4f} ms = {r['ms'] / floor:.2f}x the floor, F.layer_norm {r['library_ms']:.4f} "
             f"= {r['library_ms'] / floor:.2f}x, bound {r['bound_ms'] * 1e3:.2f} us" for r in small))
     check(len(small) == len(LN_ROBOT_SHAPES), "phase 25's LayerNorm shapes are not all timed")
-    return {**rows_out[0], "launch_floor_ms": floor}  # the ViT-g serving shape stands for the kernel
+    # The host's side of a call at the B=1 act's ViT-g shape, in its three forms.
+    x, scale, bias = ln_inputs(257, 1408, torch.bfloat16, gen)
+    h = torch.randn_like(x)
+    sc, bi = scale.to(x.dtype), bias.to(x.dtype)
+    host = dict(k1=host_us(lambda: layer_norm(x, scale, bias, 1e-6)),
+                fused=host_us(lambda: add_layer_norm(x, h, scale, bias, 1e-6, keep_sum=True)),
+                route=host_us(lambda: layer_norm(x + h, scale, bias, 1e-6)),
+                library=host_us(lambda: F.layer_norm(x + h, (1408,), sc, bi, 1e-6)))
+    log(f"[layer_norm] host cost per call at (257, 1408) bf16 (wall per call over {HOST_CALLS} back-to-back calls): "
+        f"K1 {host['k1']:.2f} us, add_layer_norm {host['fused']:.2f} us, x + h then K1 {host['route']:.2f} us, "
+        f"x + h then F.layer_norm {host['library']:.2f} us")
+    plain = {**rows_out[0], "launch_floor_ms": floor, "host_us": host["k1"]}  # the ViT-g serving shape
+    fused = {**fused_out[0], "host_us": host["fused"]}
+    return plain, fused
+
+
+def vit_unfused(vit, images: torch.Tensor) -> torch.Tensor:
+    """``ViTEncoder.forward`` written out as it was before the fused
+    entry: every add a PyTorch add, every norm the plain entry of K1."""
+    c, conv = vit.cfg, vit.patch_embed
+    dt = torch.promote_types(images.dtype, conv.weight.dtype)
+    x = F.conv2d(images.permute(0, 3, 1, 2).to(dt), conv.weight.to(dt), conv.bias.to(dt), stride=c.patch_size)
+    x = x.flatten(2).transpose(1, 2)
+    x = torch.cat([vit.class_embedding.to(x.dtype).expand(x.shape[0], 1, c.width), x], dim=1)
+    x = x + vit.position_embedding[None].to(x.dtype)
+    for i in range(c.depth):
+        blk = getattr(vit, f"block{i}")
+        x = x + blk.attn(blk.ln1(x))
+        x = x + blk.mlp(blk.ln2(x))
+    return vit.post_ln(x)
+
+
+def qformer_unfused(qf, queries: torch.Tensor, image_embeds: torch.Tensor) -> torch.Tensor:
+    """The Q-Former's query branch, each post-norm site an add then K1."""
+    x = qf.embed_ln(queries)
+    for i in range(qf.cfg.layers):
+        layer = getattr(qf, f"layer{i}")
+        x = layer.self_ln(layer.self_attn(x) + x)
+        if layer.has_cross:
+            x = layer.cross_ln(layer.cross_attn(x, kv=image_embeds) + x)
+        h = layer.ffn_query_fc2(F.gelu(layer.ffn_query_fc1(x)))
+        x = layer.ffn_query_ln(h + x)
+    return x
+
+
+def clip_layers_unfused(enc, x: torch.Tensor, mask=None) -> torch.Tensor:
+    for i in range(enc.cfg.layers):
+        layer = getattr(enc, f"layer{i}")
+        x = x + layer.attn(layer.ln1(x), mask)
+        x = x + layer.fc2(quick_gelu(layer.fc1(layer.ln2(x))))
+    return x
+
+
+def l2_normalize(x: torch.Tensor) -> torch.Tensor:
+    return x / (torch.sqrt((x * x).sum(-1, keepdim=True)) + 1e-6)
+
+
+def owl_detect_unfused(m, images: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor):
+    """``OwlViTDetectionModule.forward`` with every add before a norm a
+    PyTorch add and every norm the plain entry of K1."""
+    v, t = m.vision, m.text
+    mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
+    std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
+    x = ((images - mean) / std).to(m.cfg.compute_dtype)
+    w = v.patch_embed.weight
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x = F.conv2d(x.permute(0, 3, 1, 2).to(dt), w.to(dt), stride=v.cfg.patch_size).flatten(2).transpose(1, 2)
+    x = torch.cat([v.class_embedding.to(x.dtype).expand(x.shape[0], 1, v.cfg.hidden), x], dim=1)
+    x = v.pre_ln(x + v.position_embed[None].to(x.dtype))
+    h = m.post_ln(clip_layers_unfused(v, x))
+    feats = m.merge_ln(h[:, 1:] * h[:, :1])
+    e = t.token_embed(ids)
+    e = t.final_ln(clip_layers_unfused(t, e + t.position_embed[None, : ids.shape[1]].to(e.dtype), mask))
+    txt = l2_normalize(m.text_projection(e[torch.arange(e.shape[0], device=e.device), ids.argmax(-1)]))
+    boxes = torch.sigmoid(m.box_head(feats) + box_bias(v.cfg.grid, feats.device)[None])
+    img_cls = l2_normalize(m.class_dense(feats))
+    img_cls, txt = (u.to(torch.promote_types(img_cls.dtype, txt.dtype)) for u in (img_cls, txt))
+    logits = torch.einsum("bpd,td->bpt", img_cls, txt)
+    return boxes, (logits + m.logit_shift(feats)) * (F.elu(m.logit_scale(feats)) + 1.0)
+
+
+@torch.inference_mode()
+def phase_fused_route(engine: PerceptionEngine, det, rgb: torch.Tensor) -> None:
+    """The models' fused route against the unfused composition above, at
+    full width on the card, bit for bit: ViT-g at B=8 and B=1, the
+    Q-Former's query branch on each, and one OWL-ViT detect at B=8 over
+    the 80 COCO prompts; K1's launches and the fused ones counted."""
+    itm = engine.itm.module
+    for b in (BATCH_LANES, 1):
+        images = ((engine.itm.preprocess(rgb[:b]) - torch.tensor(BLIP_MEAN, device=DEV))
+                  / torch.tensor(BLIP_STD, device=DEV)).to(itm.cfg.compute_dtype)
+        add_layer_norm.launches = layer_norm.launches = 0
+        embeds = itm.vision(images)
+        queries = itm.query_tokens.to(itm.cfg.compute_dtype).repeat(b, 1, 1)
+        out = itm.qformer(queries, image_embeds=embeds, is_query=True)
+        counts = (layer_norm.launches, add_layer_norm.launches)
+        want_embeds = vit_unfused(itm.vision, images)
+        want_out = qformer_unfused(itm.qformer, queries, embeds)
+        log(f"[fused] B={b}: ViT-g (bf16 {tuple(embeds.shape)}) and the Q-Former's query branch through the fused "
+            f"route against the unfused composition: ViT-g bit-equal {bool(torch.equal(embeds, want_embeds))}, "
+            f"Q-Former bit-equal {bool(torch.equal(out, want_out))}; K1 {counts[0]} (expect {LAUNCHES_IMAGE}), "
+            f"fused {counts[1]} (expect {FUSED_IMAGE})")
+        check(torch.equal(embeds, want_embeds) and torch.equal(out, want_out),
+              f"B={b}: the fused route differs from the unfused composition")
+        check(counts == (LAUNCHES_IMAGE, FUSED_IMAGE), f"B={b}: ITM K1 launches {counts}")
+    m = det.module
+    images = det.preprocess(rgb)
+    ids, mask = (torch.as_tensor(a, device=DEV) for a in encode_queries(COCO_CLASSES))
+    add_layer_norm.launches = layer_norm.launches = 0
+    boxes, logits = m(images, ids, mask)
+    counts = (layer_norm.launches, add_layer_norm.launches)
+    want_boxes, want_logits = owl_detect_unfused(m, images, ids, mask)
+    same = bool(torch.equal(boxes, want_boxes) and torch.equal(logits, want_logits))
+    log(f"[fused] OWL-ViT detect at B={rgb.shape[0]} over the {len(COCO_CLASSES)} COCO prompts through the fused "
+        f"route against the unfused composition: boxes and logits bit-equal {same}; K1 {counts[0]} (expect "
+        f"{LAUNCHES_DETECT}), fused {counts[1]} (expect {FUSED_DETECT})")
+    check(same, "OWL-ViT detect: the fused route differs from the unfused composition")
+    check(counts == (LAUNCHES_DETECT, FUSED_DETECT), f"OWL-ViT detect K1 launches {counts}")
 
 
 # --- phase 3 -----------------------------------------------------------------
@@ -807,7 +1039,7 @@ def phase_tiny_obstacle_map() -> None:
 def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
     observations = spin_observations([views], cfg)
-    layer_norm.launches = 0
+    add_layer_norm.launches = layer_norm.launches = 0
     attention.launches = 0
     t0 = time.perf_counter()
     engine.text_features(TARGET)
@@ -827,6 +1059,7 @@ def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
         f"(expect {ATTN_LAUNCHES_IMAGE})"
     )
     check(text["layer_norm"] == LAUNCHES_TEXT, "encode_texts K1 launch count")
+    launches = with_fused(launches, "main", FUSED_TEXT + FUSED_IMAGE)
     check(image["layer_norm"] == LAUNCHES_IMAGE, "cosine_cached_text K1 launch count")
     check(text["attention"] == ATTN_LAUNCHES_TEXT, "encode_texts K3 launch count")
     check(image["attention"] == ATTN_LAUNCHES_IMAGE, "cosine_cached_text K3 launch count")
@@ -1045,7 +1278,7 @@ def phase_detection_path(cfg, det, sam, rgb) -> dict:
     per_pass = chain_launches(sam.cfg.tinyvit)
     pipe_coco = make_pipeline(det, sam, cfg, cap)
     pipe_open = make_pipeline(det, sam, cfg, cap, non_coco_threshold=0.0)
-    layer_norm.launches = 0
+    add_layer_norm.launches = layer_norm.launches = 0
     mbconv_chain.launches = 0
     t0 = time.perf_counter()
     out_coco = pipe_coco(rgb, COCO_TARGET)
@@ -1071,6 +1304,7 @@ def phase_detection_path(cfg, det, sam, rgb) -> dict:
         f"K2 {k2_open} (expect {per_pass * passes_open}); wall {wall:.2f} s incl. first calls"
     )
     check(ln_coco == 2 * LAUNCHES_DETECT and ln_open == LAUNCHES_DETECT, "detection path K1 launch count")
+    launches = with_fused(launches, "detect", 3 * FUSED_DETECT)
     check(k2_coco == per_pass * passes_coco and k2_open == per_pass * passes_open, "K2 launches per SAM pass")
     check(frames_open == b and passes_open == -(-b // cap), "threshold 0 must put detections on every frame")
 
@@ -1269,7 +1503,7 @@ def phase_gdino_path(cfg, adapter, owl, sam, rgb) -> dict:
     runs = [(f"{OPEN_TARGET} at threshold {cfg.non_coco_threshold}", pipe, OPEN_TARGET),
             (f"{OPEN_TARGET} at threshold 0", pipe0, OPEN_TARGET),
             (f"{COCO_TARGET} (COCO route, then the GroundingDINO retry)", pipe, COCO_TARGET)]
-    deform_gather.launches = layer_norm.launches = mbconv_chain.launches = 0
+    deform_gather.launches = add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = 0
     t0 = time.perf_counter()
     outs, counts = [], []
     for _, p, target in runs:
@@ -1279,8 +1513,8 @@ def phase_gdino_path(cfg, adapter, owl, sam, rgb) -> dict:
         counts.append([n - n0 for n, n0 in zip((deform_gather.launches, layer_norm.launches, mbconv_chain.launches),
                                                 before)])
     wall = time.perf_counter() - t0
-    launches = dict(deform_gather=deform_gather.launches, layer_norm=layer_norm.launches,
-                    mbconv_chain=mbconv_chain.launches)
+    launches = with_fused(dict(deform_gather=deform_gather.launches, layer_norm=layer_norm.launches,
+                               mbconv_chain=mbconv_chain.launches), "gdino", FUSED_DETECT)
 
     _, _, _, coco_valid = pipe._coco_path(rgb, COCO_TARGET)
     hit = coco_valid.any(dim=1)
@@ -1415,7 +1649,7 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
     b = BATCH_LANES
     lane_views = [spin_views(SPIN_VIEWS, seed=lane) for lane in range(b)]
     rgb = torch.from_numpy(np.stack([o["rgb"] for views in lane_views for o in views])).to(DEV)
-    layer_norm.launches = attention.launches = 0
+    add_layer_norm.launches = layer_norm.launches = attention.launches = 0
     cos = torch.cat([engine.score(rgb[i:i + ITM_BATCH], TARGET) for i in range(0, len(rgb), ITM_BATCH)])
     cos = cos.float().reshape(b, SPIN_VIEWS, -1)
     observations = spin_observations(lane_views, cfg)
@@ -1428,6 +1662,7 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
         f"K3 {launches['attention']} (expect {calls * ATTN_LAUNCHES_IMAGE})")
     check(launches == dict(layer_norm=calls * LAUNCHES_IMAGE, attention=calls * ATTN_LAUNCHES_IMAGE),
           "batched spin ITM launch counts")
+    launches = with_fused(launches, "batched", calls * FUSED_IMAGE)
 
     # Each lane against a B = 1 run of the same lane, bit for bit.
     for lane in range(b):
@@ -1547,7 +1782,7 @@ def phase_object_map(det_cfg, det, sam, smi: str) -> dict:
     views = spin_views(b)
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
     pipe = make_pipeline(det, sam, det_cfg, det_cfg.sam_frame_capacity, non_coco_threshold=0.0)
-    layer_norm.launches = mbconv_chain.launches = 0
+    add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = 0
     masks, valid, (xyxy, _, _) = pipe(rgb, OPEN_TARGET)
     torch.cuda.synchronize()
     launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches)
@@ -1556,6 +1791,7 @@ def phase_object_map(det_cfg, det, sam, smi: str) -> dict:
     passes = -(-int(valid.any(dim=1).sum()) // det_cfg.sam_frame_capacity)
     check(launches == dict(layer_norm=LAUNCHES_DETECT, mbconv_chain=chain_launches(sam.cfg.tinyvit) * passes),
           "object-map masks: K1 and K2 launch counts")
+    launches = with_fused(launches, "objmap", FUSED_DETECT)
     log(f"[objmap] masks {tuple(masks.shape)} from the {OPEN_TARGET} pipeline call at threshold 0: {int(valid.sum())} "
         f"valid, mean coverage {float(masks.float().mean()):.3f}; K1 {launches['layer_norm']}, K2 "
         f"{launches['mbconv_chain']} launches")
@@ -1607,7 +1843,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     rng = threefry.PRNGKey(0, device=DEV)
     record, loop_ms = [], []
-    layer_norm.launches = attention.launches = 0
+    add_layer_norm.launches = layer_norm.launches = attention.launches = 0
     t0 = time.perf_counter()
     for _ in range(EPISODE_STEPS):
         t_step = time.perf_counter()
@@ -1659,6 +1895,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
     check(any(e.path_length > 0 for e in envs), "no lane of the batched episodes moved")
     check(launches == dict(layer_norm=EPISODE_STEPS * LAUNCHES_IMAGE, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE),
           "batched episodes: K1 and K3 launch counts")
+    launches = with_fused(launches, "episodes", EPISODE_STEPS * FUSED_IMAGE)
     init = cfg.num_init_turns
     check(bool((modes[:init] == ITM.MODE_INITIALIZE).all() and (modes[init] != ITM.MODE_INITIALIZE).all()),
           f"a lane did not leave INITIALIZE after exactly {init} steps")
@@ -1817,7 +2054,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
     perception.pipeline.coco_detector._coco_queries()
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     record, loop_ms = [], []
-    layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
     t0 = time.perf_counter()
     for k in range(EPISODE_STEPS):
         t_step = time.perf_counter()
@@ -1859,6 +2096,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
         f"K2 {launches['mbconv_chain']} (expect {per_pass * sum(passes)})")
     check(launches == dict(layer_norm=EPISODE_STEPS * ln_step, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE,
                            mbconv_chain=per_pass * sum(passes)), "full stack: K1, K3 and K2 launch counts")
+    launches = with_fused(launches, "full-stack", EPISODE_STEPS * FUSED_STEP)
     check(len(frames) == EPISODE_STEPS and sum(frames) > 0, "full stack: no frame detected")
     loop = float(np.median(loop_ms[1:]))
     log(f"[full-stack] the closed loop (fill the pinned buffer, the fused dispatch, its read back, the {b} "
@@ -1924,15 +2162,20 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
                              ("u16 half-size depth, half-size RGB", dict(depth_u16=True, depth_half=True,
                                                                          rgb_half=True))):
         counter.frames.clear()
-        full, fstats = run_episodes_farm(seeds, perception=perception, target=COCO_TARGET,
+        full_seeds = seeds[:FULL_FARM_EPISODES]
+        full, fstats = run_episodes_farm(full_seeds, perception=perception, target=COCO_TARGET,
                                          **{**farm_kw, "max_steps": FULL_FARM_STEPS}, **transport)
-        check(set(full) == set(seeds) and all(r.steps > 0 for r in full.values()),
-              f"the full-stack farm ({label}) lost an episode")
-        res = [full[s] for s in seeds]
-        log(f"[farm] full-stack farm, {label} records: the same {FARM_EPISODES} episodes (at most "
-            f"{FULL_FARM_STEPS} steps) with BLIP2-ITM, OWL-ViT "
-            f"and gated SAM per dispatch: all finished, successes {sum(r.success for r in res)}, steps "
-            f"{[r.steps for r in res]}, detected {sum(r.target_detected for r in res)}; frames with a detection "
+        check(set(full) == set(full_seeds), f"the full-stack farm ({label}) lost an episode")
+        res = [full[s] for s in full_seeds]
+        # INITIALIZE is exactly num_init_turns steps, and an episode ends
+        # early only on a STOP, which INITIALIZE never gives.
+        check(all(r.steps > cfg.num_init_turns for r in res),
+              f"the full-stack farm ({label}): an episode ended before it left INITIALIZE")
+        log(f"[farm] full-stack farm, {label} records: the first {FULL_FARM_EPISODES} of those episodes (at most "
+            f"{FULL_FARM_STEPS} steps, the {cfg.num_init_turns}-turn spin then the policy) with BLIP2-ITM, OWL-ViT "
+            f"and gated SAM per dispatch: all finished past the spin, successes {sum(r.success for r in res)}, steps "
+            f"{[r.steps for r in res]}, path lengths {[round(r.path_length, 3) for r in res]} m, detected "
+            f"{sum(r.target_detected for r in res)}; frames with a detection "
             f"{sum(int(f) for f in counter.frames)}; {farm_summary(fstats)}; on {smi}")
     return launches, oracle, record
 
@@ -2057,13 +2300,13 @@ def phase_vqa_veto(bridge: BLIP2VQA, rgb: torch.Tensor, smi: str) -> dict:
     probe = make_veto(bridge, 0)
     images = probe.annotate(rgb, masks)
     dense_logits = first_logits(probe, images, COCO_TARGET)  # all B*K slots in one batch
-    launches = dict(layer_norm=0, attention=0)
+    launches, fused = dict(layer_norm=0, attention=0), 0
     for density in VQA_DENSITIES:
         _, valid = veto_slots(b, k, h, w, density)
         flat_valid = valid.reshape(-1)
         yes = int(dense_logits[flat_valid].argmax(-1)[0])  # the first valid slot's answer: some keep, some drop
         gated = make_veto(bridge, yes, VQA_CAPACITY)
-        layer_norm.launches = attention.launches = 0
+        add_layer_norm.launches = layer_norm.launches = attention.launches = 0
         out = gated(rgb, masks, valid, COCO_TARGET)
         torch.cuda.synchronize()
         passes = -(-density // VQA_CAPACITY)
@@ -2075,6 +2318,7 @@ def phase_vqa_veto(bridge: BLIP2VQA, rgb: torch.Tensor, smi: str) -> dict:
             f"{got['attention']} (expect {passes * ATTN_LAUNCHES_IMAGE}, {got['attention'] / passes:.0f} per pass)")
         check(got == dict(layer_norm=passes * LAUNCHES_IMAGE, attention=passes * ATTN_LAUNCHES_IMAGE),
               f"veto at {density} valid slots: K1 and K3 launch counts")
+        fused += with_fused(got, "vqa", passes * FUSED_IMAGE)["layer_norm_fused"]
         # The gated passes' first-token logits (the same capacity-8 windows
         # of the valid-first order) against the dense batch's.
         order = torch.argsort((~flat_valid).to(torch.uint8), stable=True)[:passes * VQA_CAPACITY]
@@ -2101,7 +2345,7 @@ def phase_vqa_veto(bridge: BLIP2VQA, rgb: torch.Tensor, smi: str) -> dict:
         check(bool((out <= valid).all()), "the veto validated an invalid slot")
         timed(f"B={b} veto, {density} valid slots ({passes} passes of {VQA_CAPACITY}, {VQA_TOKENS} answer tokens)",
               lambda: gated(rgb, masks, valid, COCO_TARGET).cpu(), smi)
-    return launches
+    return {**launches, "layer_norm_fused": fused}
 
 
 class CountingVeto:
@@ -2144,7 +2388,7 @@ def phase_vqa_full_stack(engine: PerceptionEngine, det, sam, bridge: BLIP2VQA, s
     perception.pipeline.vqa_veto._question_tokens(COCO_TARGET)
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     record = []
-    layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
     t0 = time.perf_counter()
     for k in range(VQA_STEPS):
         for j, o in enumerate(obs_list):
@@ -2176,6 +2420,7 @@ def phase_vqa_full_stack(engine: PerceptionEngine, det, sam, bridge: BLIP2VQA, s
         f"K1 {launches['layer_norm']} (expect {want['layer_norm']}), K3 {launches['attention']} (expect "
         f"{want['attention']}), K2 {launches['mbconv_chain']} (expect {want['mbconv_chain']})")
     check(launches == want, "full stack with the veto: K1, K3 and K2 launch counts")
+    launches = with_fused(launches, "vqa-stack", VQA_STEPS * FUSED_STEP + FUSED_IMAGE * sum(veto_passes))
     check(sum(veto_passes) > 0, "the full stack's veto asked no slot")
     st = ITM.create_state(spec, cfg, batch=b, device=DEV)
     names = ("reset", "depth", "heading", "xy", "rgb", "seeds", "steps")
@@ -2429,7 +2674,7 @@ def phase_habitat_eval(engine: PerceptionEngine, det, sam, pointnav, smi: str) -
 
     with tempfile.TemporaryDirectory() as tmp:
         log_dir, video_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "videos")
-        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
         t0 = time.perf_counter()
         results = evaluate(factory, agent, HABITAT_EPISODES, log_dir=log_dir, video_dir=video_dir, print_fn=log)
         wall = time.perf_counter() - t0
@@ -2453,6 +2698,7 @@ def phase_habitat_eval(engine: PerceptionEngine, det, sam, pointnav, smi: str) -
           and acts[:, 2].tolist() == want_k2, "K1, K2 or K3 launches per act")
     check(launches == dict(layer_norm=int(acts[:, 1].sum()), mbconv_chain=int(acts[:, 2].sum()),
                            attention=int(acts[:, 3].sum())), "launch counts over the run")
+    launches = with_fused(launches, "habitat", len(acts) * FUSED_STEP)
     # The logs' summary equals the same summary of the returned results,
     # and its aggregates metrics.aggregate's.
     want = summarize([{**r.to_dict(), "target_object": HABITAT_TARGET} for r in results])
@@ -2619,7 +2865,7 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
         steps, episodes, ep_step = [], 1, 0
         obs = env.reset(REALITY_TARGET)
         timer = StepTimer()
-        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
         t0 = time.perf_counter()
         for k in range(REALITY_ACTIONS):
             before, calls = clone_tree(policy.state), hooks.depth_calls
@@ -2638,8 +2884,8 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
                 obs, ep_step = env.step(action), ep_step + 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = dict(layer_norm=layer_norm.launches, attention=attention.launches,
-                        mbconv_chain=mbconv_chain.launches)
+        launches = with_fused(dict(layer_norm=layer_norm.launches, attention=attention.launches,
+                                   mbconv_chain=mbconv_chain.launches), "reality")
         detected = [bool(s["inputs"][6].any()) for s in steps]
         xy, yaw = env.robot.xy_yaw
         log(f"[reality] FakeRobot(seed=0) -> ObjectNavEnv -> RealityITMPolicyV2 (v2, B=1, continuous PointNav at "
@@ -2867,7 +3113,7 @@ def phase_vitdet(det_cfg, det, rgb, smi: str) -> dict:
     # Phase 11's pipeline with ViT-det in place of MobileSAM: both routes
     # for the COCO target, then the open-vocabulary route at threshold 0
     # (every frame holds a detection), gated at capacity 2.
-    layer_norm.launches = mbconv_chain.launches = attention.launches = 0
+    add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = attention.launches = 0
     out_coco = make_pipeline(det, sam, det_cfg, cap)(rgb, COCO_TARGET)
     out_open = make_pipeline(det, sam, det_cfg, cap, non_coco_threshold=0.0)(rgb, OPEN_TARGET)
     torch.cuda.synchronize()
@@ -2880,6 +3126,7 @@ def phase_vitdet(det_cfg, det, rgb, smi: str) -> dict:
         f"K1 {launches['layer_norm']} (expect {3 * LAUNCHES_DETECT}, OWL-ViT's), K2 {launches['mbconv_chain']} "
         f"(expect 0: no TinyViT), K3 {launches['attention']}")
     check(launches["layer_norm"] == 3 * LAUNCHES_DETECT, "ViT-det pipeline K1 launch count")
+    launches = with_fused(launches, "vitdet", 3 * FUSED_DETECT)
     check(launches["mbconv_chain"] == 0, "the ViT-det pipeline launched K2: the encoder was not swapped")
     check(frames_open == b, "threshold 0 must put detections on every frame")
     ungated = make_pipeline(det, sam, det_cfg, None, non_coco_threshold=0.0)(rgb, OPEN_TARGET)
@@ -2978,12 +3225,13 @@ def phase_semexp(engine: PerceptionEngine, det, sam, pointnav, smi: str) -> dict
     envs = FakeSemExpVecEnv(lambda i: FakeObjectNavEnv(two_room_plan(seed=i), EnvConfig(max_steps=SEMEXP_STEPS)), 1,
                             goal_name=HABITAT_TARGET)
     with tempfile.TemporaryDirectory() as tmp:
-        layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
         t0 = time.perf_counter()
         results = evaluate_semexp(envs, agent, 1, max_episode_length=SEMEXP_STEPS + 1, log_dir=tmp, print_fn=log)
         wall = time.perf_counter() - t0
         logged = sorted(os.listdir(tmp))
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    launches = with_fused(dict(layer_norm=layer_norm.launches, attention=attention.launches,
+                               mbconv_chain=mbconv_chain.launches), "semexp")
     check(len(results) == 1 and len(logged) == 1, "evaluate_semexp lost its episode or its log")
     r = results[0]
     check(all(math.isfinite(r[key]) for key in ("success", "spl", "distance_to_goal")), "SemExp metrics finite")
@@ -3106,17 +3354,18 @@ def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: to
             p.engine.text_features(COCO_TARGET)
             p.pipeline._queries(COCO_TARGET)
             p.pipeline.coco_detector._coco_queries()
-        counts = []
+        counts, k1_fused = [], []
         for k, r in enumerate(record[:BUNDLE_STEPS]):
             for name, v in views.items():
                 v[...] = r["inputs"][name]
             outs = []
             for i, (_, fused) in enumerate(stacks):
-                layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+                add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
                 out, states[i] = fused(states[i], None, buf)
                 outs.append(out.cpu())
                 if i == 0:
                     counts.append((layer_norm.launches, mbconv_chain.launches, attention.launches))
+                    k1_fused.append(add_layer_norm.launches)
             check(torch.equal(outs[0], outs[1]), f"bundle-served dispatch {k}: outputs differ from the in-memory "
                   f"stack's ({(outs[0] != outs[1]).sum().item()} values)")
         flat = [[t for f in s_ for t in (f if isinstance(f, tuple) else (f,))] for s_ in states]
@@ -3126,7 +3375,9 @@ def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: to
                         ATTN_LAUNCHES_IMAGE) for f in frames]
         check(counts == want_counts, f"bundle-served dispatches: K1, K2, K3 launches {counts}, expected {want_counts}")
         launches = dict(layer_norm=sum(c[0] for c in counts), mbconv_chain=sum(c[1] for c in counts),
-                        attention=sum(c[2] for c in counts))
+                        attention=sum(c[2] for c in counts), layer_norm_fused=sum(k1_fused))
+        check(k1_fused == [FUSED_STEP] * len(counts), f"bundle-served dispatches: fused K1 launches {k1_fused}, "
+              f"expected {FUSED_STEP} each")
         st = states[0]._replace(steps=states[0].steps + 1)
         timing = step_timings("bundle-served fused dispatch", b, lambda: stacks[0][1](st, None, buf)[0].cpu(), smi)
         log(f"[bundle] full_stack_from_bundle (the bundle's vocab, max_len {served.tokenizer.max_len}) against "
@@ -3174,7 +3425,7 @@ def kernel_record(name: str, replaces: str, launches_by_path: dict, timed: dict)
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
         **{k: timed[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        **({"launch_floor_ms": timed["launch_floor_ms"]} if "launch_floor_ms" in timed else {}),
+        **{k: timed[k] for k in ("launch_floor_ms", "host_us") if k in timed},
     }
 
 
@@ -3187,7 +3438,7 @@ def main() -> None:
     smi = phase_device()
     phase_build()
     lap("0-1 device, build")
-    ln = phase_layer_norm()
+    ln, ln_add = phase_layer_norm()
     k3 = phase_attention()
     lap("2-3 K1, K3")
     phase_tiny_model()
@@ -3211,6 +3462,7 @@ def main() -> None:
     log(f"[detect] OWL-ViT base-32 {n_det / 1e6:.1f} M + MobileSAM {n_sam / 1e6:.2f} M parameters, bf16 serving")
     det_run = phase_detection_path(det_cfg, det, sam, rgb)
     phase_detection_timing(det_cfg, det, sam, rgb, smi)
+    phase_fused_route(engine, det, rgb)
     lap("9-12 detection")
 
     k4 = phase_deform_gather()
@@ -3292,17 +3544,21 @@ def main() -> None:
           "the SemExp loop launched no K1, K2 or K3")
     check(all(bundle_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the bundle-served full stack launched no K1, K2 or K3")
+    k1_runs = {"itm_spin": main_run, "detection": det_run, "gdino_detection": gdino_run,
+               "batched_spin": batched_run, "object_map": objmap_run, "decision_step": episodes_run,
+               "full_stack_step": full_stack_run, "vqa_veto": veto_run, "vqa_full_stack_step": vqa_stack_run,
+               "habitat_eval": habitat_run, "reality": reality_run, "vitdet_detection": vitdet_run,
+               "semexp": semexp_run, "bundle_full_stack": bundle_run}
+    check(all(r["layer_norm_fused"] > 0 for r in k1_runs.values()), "a K1 path launched no fused add_layer_norm")
     record = {
         "kernels": [
-            kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
-                          {"itm_spin": main_run["layer_norm"], "detection": det_run["layer_norm"],
-                           "gdino_detection": gdino_run["layer_norm"], "batched_spin": batched_run["layer_norm"],
-                           "object_map": objmap_run["layer_norm"], "decision_step": episodes_run["layer_norm"],
-                           "full_stack_step": full_stack_run["layer_norm"], "vqa_veto": veto_run["layer_norm"],
-                           "vqa_full_stack_step": vqa_stack_run["layer_norm"],
-                           "habitat_eval": habitat_run["layer_norm"], "reality": reality_run["layer_norm"],
-                           "vitdet_detection": vitdet_run["layer_norm"], "semexp": semexp_run["layer_norm"],
-                           "bundle_full_stack": bundle_run["layer_norm"]}, ln),
+            # K1's launches from both entries; "fused" is the share of them
+            # that took the add before them, and the fused entry's timed case.
+            {**kernel_record("layer_norm", "vlfm_tpu/ops/norms.py:41",
+                             {p: r["layer_norm"] for p, r in k1_runs.items()}, ln),
+             "fused": {"launches": sum(r["layer_norm_fused"] for r in k1_runs.values()),
+                       "launches_by_path": {p: r["layer_norm_fused"] for p, r in k1_runs.items()},
+                       **{k: v for k, v in ln_add.items() if k != "library_ms"}}},
             kernel_record("mbconv_chain", "vlfm_tpu/ops/conv_fused.py:136",
                           {"detection": det_run["mbconv_chain"], "gdino_detection": gdino_run["mbconv_chain"],
                            "object_map": objmap_run["mbconv_chain"],

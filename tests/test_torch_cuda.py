@@ -27,7 +27,7 @@ from vlfm_tpu_torch.ops import attention as A
 from vlfm_tpu_torch.ops import deform_gather as DG
 from vlfm_tpu_torch.ops import threefry as T
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
-from vlfm_tpu_torch.ops.norms import bf16_tolerance, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.ops.norms import add_layer_norm, bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
 from vlfm_tpu_torch.runner import packing as PK
@@ -102,6 +102,60 @@ def test_layer_norm_wrapper_raises_instead_of_falling_back(dev):
     with pytest.raises(ValueError, match="is on cpu"):
         layer_norm(x, scale.cpu(), bias)
     assert layer_norm.launches == before
+
+
+@pytest.mark.parametrize("rows,d,h_rows,dtype,eps,keep_sum", [
+    (2056, 1408, 2056, torch.bfloat16, 1e-6, True),    # ViT-g at B=8, a block's add
+    (2056, 1408, 257, torch.bfloat16, 1e-6, True),     # ViT-g's position table over 8 images
+    (257, 1408, 257, torch.bfloat16, 1e-6, False),     # ViT-g at B=1, post_ln
+    (256, 768, 256, torch.bfloat16, 1e-12, False),     # Q-Former at B=8, post-norm
+    (577, 768, 577, torch.bfloat16, 1e-5, True),       # OWL-ViT vision at B=1
+    (80 * 16, 512, 16, torch.bfloat16, 1e-5, True),    # OWL-ViT text: the position table over 80 prompts
+    (7, 96, 7, torch.float32, 1e-6, True),
+    (3, 33, 3, torch.float32, 1e-6, False),            # ragged D: scalar path
+    (5, 2048, 5, torch.float32, 1e-6, True),           # the widest D the kernel takes
+])
+def test_add_layer_norm_kernel_matches_plain(dev, rows, d, h_rows, dtype, eps, keep_sum):
+    x, scale, bias = _ln_inputs(rows, d, dtype, dev)
+    h = _ln_inputs(h_rows, d, dtype, dev)[0] * 3 + 1
+    before = (layer_norm.launches, add_layer_norm.launches)
+    x = x.reshape(-1, h_rows, d)  # h: one table for every group of h_rows rows
+    got = add_layer_norm(x, h, scale, bias, eps, keep_sum=keep_sum)
+    torch.cuda.synchronize()
+    assert (layer_norm.launches, add_layer_norm.launches) == (before[0] + 1, before[1] + 1)
+    s, y = got if keep_sum else (None, got)
+    s_want = x + h
+    y_want = layer_norm_ref(s_want, scale, bias, eps)
+    assert y.dtype == dtype and y.shape == x.shape
+    if keep_sum:
+        assert torch.equal(s, s_want)
+    if dtype == torch.float32:
+        torch.testing.assert_close(y, y_want, atol=2e-5, rtol=0)
+    else:
+        assert bool(((y.float() - y_want.float()).abs() <= bf16_tolerance(y_want)).all())
+    # The fused launch is the add, then the plain entry, bit for bit.
+    assert torch.equal(y, layer_norm(s_want, scale, bias, eps))
+
+
+def test_add_layer_norm_wrapper_raises_instead_of_falling_back(dev):
+    x, scale, bias = _ln_inputs(8, 64, torch.bfloat16, dev)
+    before = (layer_norm.launches, add_layer_norm.launches)
+    with pytest.raises(ValueError, match="contiguous"):
+        add_layer_norm(x.t().contiguous().t(), x, scale, bias, keep_sum=True)
+    with pytest.raises(ValueError, match="contiguous h"):
+        add_layer_norm(x, x.t().contiguous().t(), scale, bias, keep_sum=True)
+    with pytest.raises(TypeError, match="float32"):
+        add_layer_norm(x, x, scale.bfloat16(), bias, keep_sum=False)
+    with pytest.raises(TypeError, match="one dtype"):
+        add_layer_norm(x, x.float(), scale, bias, keep_sum=False)
+    with pytest.raises(ValueError, match="D <= 2048"):
+        big = torch.zeros(2, 4096, device=dev)
+        add_layer_norm(big, big, torch.ones(4096, device=dev), torch.zeros(4096, device=dev), keep_sum=True)
+    with pytest.raises(ValueError, match="trailing dimensions"):  # broadcasts, but not as a table of rows
+        add_layer_norm(x.reshape(2, 4, 64), x[:2].reshape(2, 1, 64), scale, bias, keep_sum=True)
+    with pytest.raises(ValueError, match="h is on cpu"):
+        add_layer_norm(x, x.cpu(), scale, bias, keep_sum=True)
+    assert (layer_norm.launches, add_layer_norm.launches) == before
 
 
 def test_tiny_blip2_card_matches_cpu_and_counts_launches(dev):

@@ -2,22 +2,31 @@
 
 On the CPU the port's ``layer_norm`` runs its plain version; it is held to
 ``vlfm_tpu.ops.norms.layer_norm`` in interpret mode on the cases of
-tests/test_norms.py. The CUDA kernel itself is held to the plain version by
+tests/test_norms.py. The fused entry ``add_layer_norm`` runs its plain
+version here too, which is ``x + h`` then ``layer_norm_ref``, bit for bit;
+the models that route their residual adds through it keep their state-dict
+keys. The CUDA kernel itself is held to the plain version by
 tests/test_torch_cuda.py (skips without a card) and by chip_smoke.py.
 """
 
 import os
 import stat
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from vlfm_tpu.models import blip2_itm as JB
+from vlfm_tpu.models import owl_vit as JO
 from vlfm_tpu.ops.norms import layer_norm as jax_layer_norm
 from vlfm_tpu_torch.kernels import build as B
+from vlfm_tpu_torch.models import blip2_itm as TB
+from vlfm_tpu_torch.models import owl_vit as TO
 from vlfm_tpu_torch.models.layers import FastLayerNorm, LayerNormF32
-from vlfm_tpu_torch.ops.norms import layer_norm, layer_norm_ref
+from vlfm_tpu_torch.models.params import port_layout
+from vlfm_tpu_torch.ops.norms import add_layer_norm, add_layer_norm_ref, layer_norm, layer_norm_ref
 
 
 def _inputs(shape, seed):
@@ -80,12 +89,95 @@ def test_cpu_tensor_takes_plain_version_without_counting():
     want = layer_norm_ref(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias))
     assert torch.equal(got, want)
     assert layer_norm.launches == before
+    x, h, scale, bias = _add_inputs((5, 64), (5, 64), torch.bfloat16, seed=5)
+    before = (layer_norm.launches, add_layer_norm.launches)
+    s, y = add_layer_norm(x, h, scale, bias, keep_sum=True)
+    want_s, want_y = add_layer_norm_ref(x, h, scale, bias, keep_sum=True)
+    assert torch.equal(s, want_s) and torch.equal(y, want_y)
+    assert (layer_norm.launches, add_layer_norm.launches) == before
 
 
 def test_other_devices_raise():
     x = torch.empty(4, 8, device="meta")
     with pytest.raises(ValueError, match="CPU or CUDA"):
         layer_norm(x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"))
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        add_layer_norm(x, x, torch.ones(8, device="meta"), torch.zeros(8, device="meta"), keep_sum=True)
+
+
+def _add_inputs(shape, h_shape, dtype, seed):
+    """x, h (h of ``h_shape``, broadcast against x), scale, bias: residual
+    streams with a large mean, so the two-pass variance and the sum's
+    rounding both matter."""
+    x, scale, bias = _inputs(shape, seed)
+    h = np.random.default_rng(seed + 1).standard_normal(h_shape).astype(np.float32) * 3.0 + 4.0
+    return (torch.from_numpy(x).to(dtype), torch.from_numpy(h).to(dtype), torch.from_numpy(scale),
+            torch.from_numpy(bias))
+
+
+# (x's shape, h's shape): one row, leading shapes, h broadcast over the batch
+# (a position table), and a ragged width.
+ADD_SHAPES = [((1, 64), (1, 64)), ((2, 7, 96), (2, 7, 96)), ((3, 9, 48), (1, 9, 48)),
+              ((2, 5, 33), (5, 33))]
+
+
+@pytest.mark.parametrize("keep_sum", [True, False])
+@pytest.mark.parametrize("eps", [1e-6, 1e-12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,h_shape", ADD_SHAPES)
+def test_add_layer_norm_is_add_then_layer_norm_bit_for_bit(shape, h_shape, dtype, eps, keep_sum):
+    x, h, scale, bias = _add_inputs(shape, h_shape, dtype, seed=sum(shape) + len(h_shape))
+    s_want = x + h
+    y_want = layer_norm_ref(s_want, scale, bias, eps)
+    before = (layer_norm.launches, add_layer_norm.launches)
+    for fn in (add_layer_norm_ref, add_layer_norm):  # the wrapper takes the plain version on the CPU
+        got = fn(x, h, scale, bias, eps, keep_sum=keep_sum)
+        s, y = got if keep_sum else (None, got)
+        assert y.dtype == dtype and y.shape == shape
+        assert torch.equal(y, y_want)
+        if keep_sum:
+            assert s.dtype == dtype and torch.equal(s, s_want)
+    assert (layer_norm.launches, add_layer_norm.launches) == before
+
+
+def test_add_layer_norm_raises_on_mismatched_dtype_or_shape():
+    x, h, scale, bias = _add_inputs((4, 32), (4, 32), torch.float32, seed=6)
+    with pytest.raises(TypeError, match="one dtype"):
+        add_layer_norm(x, h.to(torch.bfloat16), scale, bias, keep_sum=False)
+    with pytest.raises(ValueError, match="trailing dimensions"):
+        add_layer_norm(x[:1], h, scale, bias, keep_sum=True)
+
+
+def _jax_keys(module, *args) -> set:
+    """The state-dict keys ``from_jax_params`` fills from ``module``'s JAX
+    parameter tree (shapes only: ``jax.eval_shape`` of its init)."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), *args)["params"]
+    return set(port_layout(jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)))
+
+
+def _model_keys(model: str):
+    """(the port's tiny module's state-dict keys, the keys JAX's tree fills)."""
+    if model == "blip2":
+        jcfg, jmod, tmod = JB.BLIP2ITMConfig.tiny(), JB.BLIP2ITMModule, TB.BLIP2ITMModule(
+            TB.BLIP2ITMConfig.tiny(), device="cpu")
+        s = jcfg.vit.image_size
+    else:
+        jcfg, jmod, tmod = JO.OwlViTDetConfig.tiny(), JO.OwlViTDetectionModule, TO.OwlViTDetectionModule(
+            TO.OwlViTDetConfig.tiny(), device="cpu")
+        s = jcfg.vision.image_size
+    want = _jax_keys(jmod(jcfg), jnp.zeros((1, s, s, 3)), jnp.zeros((1, 4), jnp.int32), jnp.ones((1, 4), bool))
+    return set(tmod.state_dict()), want
+
+
+@pytest.mark.parametrize("model,prefix", [("blip2", "vision."), ("blip2", "qformer."), ("owl_vit", "")])
+def test_fused_models_keep_their_state_dict_keys(model, prefix):
+    """ViT-g, the Q-Former and OWL-ViT route their adds through
+    ``add_layer_norm`` with the same modules: their keys are still exactly
+    those a JAX tree fills."""
+    got, want = _model_keys(model)
+    got = {k for k in got if k.startswith(prefix)}
+    want = {k for k in want if k.startswith(prefix)}
+    assert got and got == want
 
 
 def _fake_nvcc(tmp_path, body: str):

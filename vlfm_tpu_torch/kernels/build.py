@@ -106,6 +106,8 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vlfm_layer_norm.argtypes = [p, p, p, p, i, i, ctypes.c_float, i, p]
     lib.vlfm_layer_norm.restype = i
+    lib.vlfm_add_layer_norm.argtypes = [p, p, i, p, p, p, p, i, i, ctypes.c_float, i, p]
+    lib.vlfm_add_layer_norm.restype = i
     lib.vlfm_layer_norm_max_d.argtypes = []
     lib.vlfm_layer_norm_max_d.restype = i
     lib.vlfm_mbconv_chain.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i, i, i, i, i, i, i, p]

@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from vlfm_tpu_torch.ops.attention import attention as fused_attention, qkv_views
-from vlfm_tpu_torch.ops.norms import layer_norm
+from vlfm_tpu_torch.ops.norms import add_layer_norm, layer_norm
 
 
 class Dense(nn.Linear):
@@ -45,7 +45,11 @@ class Norm(nn.Module):
 class FastLayerNorm(Norm):
     """Drop-in ``nn.LayerNorm`` over the last axis (same ``weight``/``bias``
     parameters) with f32 statistics, routed through ``ops.norms.layer_norm``:
-    the CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    the CUDA kernel for CUDA tensors, the plain version for CPU tensors.
+    Called with a second tensor ``h`` it normalises ``x + h`` (the operands
+    promoted, as ``+`` promotes them) in one launch of
+    ``ops.norms.add_layer_norm`` and returns ``(x + h, norm)`` with
+    ``keep_sum``, else the norm alone."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
         super().__init__()
@@ -53,8 +57,12 @@ class FastLayerNorm(Norm):
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, h: Optional[torch.Tensor] = None, *, keep_sum: bool = False):
+        if h is None:
+            return layer_norm(x, self.weight, self.bias, self.eps)
+        if h.dtype != x.dtype:
+            x, h = promoted(x, h)
+        return add_layer_norm(x, h, self.weight, self.bias, self.eps, keep_sum=keep_sum)
 
 
 class LayerNorm(Norm):
@@ -114,14 +122,15 @@ class GroupNorm(Norm):
 
 class LayerNormF32(nn.Module):
     """LayerNorm computed in f32, cast back to the input dtype. Holds its norm
-    as ``ln``, like the flax scope."""
+    as ``ln``, like the flax scope; takes ``h`` and ``keep_sum`` as
+    ``FastLayerNorm`` does."""
 
     def __init__(self, dim: int, eps: float = 1e-6, *, device=None):
         super().__init__()
         self.ln = FastLayerNorm(dim, eps, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.ln(x)
+    def forward(self, x: torch.Tensor, h: Optional[torch.Tensor] = None, *, keep_sum: bool = False):
+        return self.ln(x, h, keep_sum=keep_sum)
 
 
 def promoted(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:

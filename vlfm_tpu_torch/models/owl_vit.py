@@ -9,7 +9,11 @@ images x prompts in one call, in the huggingface
 Every LayerNorm is the port's ``FastLayerNorm``, so on CUDA tensors it runs
 K1 (``csrc/layer_norm.cu``): pre_ln, two per layer and post_ln and merge_ln
 in one vision pass (27 at 12 layers), two per layer and final_ln in one
-text encoding (25). Submodules carry the flax scope names, so
+text encoding (25). All but two of a vision pass's (layer0.ln1 after
+pre_ln, merge_ln after a product) and all of a text encoding's take the
+residual or position add before them into their launch (``add_layer_norm``):
+the encoders carry the stream as a pair whose sum is still to be made.
+Submodules carry the flax scope names, so
 ``OwlViTDetector.from_jax_params`` loads a JAX tree through
 ``params.load_jax_params_``.
 """
@@ -121,9 +125,14 @@ class ClipLayer(nn.Module):
         self.fc1 = Dense(dim, mlp_dim, device=device)
         self.fc2 = Dense(mlp_dim, dim, device=device)
 
-    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x), mask)
-        return x + self.fc2(quick_gelu(self.fc1(self.ln2(x))))
+    def forward(self, x: torch.Tensor, h: Optional[torch.Tensor],
+                mask: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One pre-LN layer on the stream ``x + h`` (just ``x`` when ``h`` is
+        None); returns the next stream as such a pair, its add still to be
+        made by the norm after it."""
+        x, y = (x, self.ln1(x)) if h is None else self.ln1(x, h, keep_sum=True)
+        x, y = self.ln2(x, self.attn(y, mask), keep_sum=True)
+        return x, self.fc2(quick_gelu(self.fc1(y)))
 
 
 class OwlTextEncoder(nn.Module):
@@ -138,10 +147,10 @@ class OwlTextEncoder(nn.Module):
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         x = self.token_embed(input_ids)
-        x = x + self.position_embed[None, : input_ids.shape[1]].to(x.dtype)
+        h = self.position_embed[None, : input_ids.shape[1]].to(x.dtype)  # added in layer0's ln1
         for i in range(self.cfg.layers):
-            x = getattr(self, f"layer{i}")(x, attention_mask)
-        x = self.final_ln(x)
+            x, h = getattr(self, f"layer{i}")(x, h, attention_mask)
+        x = self.final_ln(x, h)
         # CLIP pooling: the feature at the EOT token (the highest token id)
         eot = torch.argmax(input_ids, dim=-1)
         return x[torch.arange(x.shape[0], device=x.device), eot]
@@ -158,20 +167,21 @@ class OwlVisionEncoder(nn.Module):
         for i in range(c.layers):
             self.add_module(f"layer{i}", ClipLayer(c.hidden, c.heads, c.mlp_dim, device=device))
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, S, S, 3) normalized -> (B, 1 + patches, hidden); post_ln is
-        the detection head's."""
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(B, S, S, 3) normalized -> the (B, 1 + patches, hidden) stream as
+        a pair (x, h) whose sum is still to be made: post_ln is the
+        detection head's, and takes the last add into its launch."""
         c = self.cfg
         w = self.patch_embed.weight
         dt = torch.promote_types(images.dtype, w.dtype)
         x = F.conv2d(images.permute(0, 3, 1, 2).to(dt), w.to(dt), stride=c.patch_size)
         x = x.flatten(2).transpose(1, 2)  # (B, patches, hidden), row-major patches
         cls = self.class_embedding.to(x.dtype).expand(x.shape[0], 1, c.hidden)
-        x = torch.cat([cls, x], dim=1) + self.position_embed[None].to(x.dtype)
-        x = self.pre_ln(x)
+        x = self.pre_ln(torch.cat([cls, x], dim=1), self.position_embed[None].to(x.dtype))
+        h = None  # pre_ln's output is the stream: layer0's ln1 has no add before it
         for i in range(c.layers):
-            x = getattr(self, f"layer{i}")(x)
-        return x
+            x, h = getattr(self, f"layer{i}")(x, h)
+        return x, h
 
 
 class OwlMLPHead(nn.Module):
@@ -216,7 +226,7 @@ class OwlViTDetectionModule(nn.Module):
         """(B, S, S, 3) in [0, 1] -> (B, P, D) merged patch features."""
         mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
         std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
-        h = self.post_ln(self.vision(((images - mean) / std).to(self.cfg.compute_dtype)))
+        h = self.post_ln(*self.vision(((images - mean) / std).to(self.cfg.compute_dtype)))
         return self.merge_ln(h[:, 1:] * h[:, :1])
 
     def text_feats(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:

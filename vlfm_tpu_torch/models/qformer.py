@@ -61,17 +61,19 @@ class QFormerLayer(nn.Module):
         self_mask: Optional[torch.Tensor],
         is_query: bool,
     ) -> torch.Tensor:
+        # Post-LN: each residual add runs in its norm's launch, and the sum
+        # itself is never kept.
         a = self.self_attn(x, mask=self_mask)
-        x = self.self_ln(a + x)
+        x = self.self_ln(a, x)
         if self.has_cross and is_query:
             if image_embeds is None:
                 raise ValueError("the query branch needs image_embeds")
             ca = self.cross_attn(x, kv=image_embeds)
-            x = self.cross_ln(ca + x)
+            x = self.cross_ln(ca, x)
         branch = "query" if is_query else "text"
         h = getattr(self, f"ffn_{branch}_fc1")(x)
         h = getattr(self, f"ffn_{branch}_fc2")(F.gelu(h))
-        return getattr(self, f"ffn_{branch}_ln")(h + x)
+        return getattr(self, f"ffn_{branch}_ln")(h, x)
 
 
 class QFormer(nn.Module):

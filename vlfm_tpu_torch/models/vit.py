@@ -40,9 +40,13 @@ class ViTBlock(nn.Module):
         self.ln2 = LayerNormF32(cfg.width, cfg.ln_eps, device=device)
         self.mlp = MLP(cfg.width, cfg.mlp_dim, device=device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.attn(self.ln1(x))
-        return x + self.mlp(self.ln2(x))
+    def forward(self, x: torch.Tensor, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """One pre-LN block on the residual stream ``x + h``, whose add is
+        still to be made; returns the next stream as such a pair. Each add
+        runs in the launch of the norm after it."""
+        x, y = self.ln1(x, h, keep_sum=True)
+        x, y = self.ln2(x, self.attn(y), keep_sum=True)
+        return x, self.mlp(y)
 
 
 class ViTEncoder(nn.Module):
@@ -74,7 +78,10 @@ class ViTEncoder(nn.Module):
         x = x.flatten(2).transpose(1, 2)  # (B, h*w, width), row-major patches
         cls = self.class_embedding.to(x.dtype).expand(b, 1, c.width)
         x = torch.cat([cls, x], dim=1)
-        x = x + self.position_embedding[None].to(x.dtype)
+        # The stream is carried as a pair (x, h) whose sum is still to be
+        # made: the position add folds into block 0's ln1, each block's
+        # closing add into the next block's ln1 and the last into post_ln.
+        h = self.position_embedding[None].to(x.dtype)
         for i in range(c.depth):
-            x = getattr(self, f"block{i}")(x)
-        return self.post_ln(x)
+            x, h = getattr(self, f"block{i}")(x, h)
+        return self.post_ln(x, h)
