@@ -222,7 +222,23 @@ Phases (any failure raises, and the script exits non-zero):
      in-memory models with the bundle's vocabulary (outputs and state), K1,
      K2 and K3 per dispatch (214, 3 per SAM pass, 39), one dispatch timed;
      (d) ``python -m vlfm_tpu_torch.run --backend synthetic --farm 8
-     --episodes 8 --max-steps 10 --weights-dir`` exiting 0 with its JSON.
+     --episodes 8 --max-steps 10 --weights-dir`` exiting 0 with its JSON;
+ 28. tensor parallelism over a (2, 2) mesh, ``make_mesh(devices=[cuda:0] *
+     4, model_parallel=2)``, all four devices the one card: (a) phase 6's
+     BLIP2-ITM through ``shard_params_tp`` (a copy per data row, every
+     Dense a ``SplitDense`` over the row's 2 model columns) scores the 8
+     frames of phase 11 split 4 + 4 over the data rows, one
+     ``PerceptionEngine`` a row; 253 split Dense calls per row (ViT-g 39 x
+     4, the Q-Former 12 x 6 + 6 x 4, vision_proj) and none whole, K1 and K3
+     at twice one unsplit image call's (220 and 78), the cosines within
+     TP_COS_ATOL of the unsplit B=8 call and vision_proj's output within
+     TP_FEAT_RTOL of its (both differences and bit-equality printed), both
+     calls timed (wall, device, idle, launches, host syncs, peak memory),
+     and a planted fault (one SplitDense's shards swapped) failing that
+     check; (b) phase 11's OWL-ViT split the same way, boxes and logits over
+     the COCO prompts within TP_OWL_ATOL of the unsplit detect; (c) phase
+     20's oracle farm with ``sharding=episode_sharding(mesh)`` on its first
+     TP_FARM_EPISODES episodes equal to the unsharded farm field for field.
 
 The last two lines of standard output are the kernels' JSON record and the
 device JSON line. ``scripts/profile_torch_step.py`` breaks the time of
@@ -231,6 +247,7 @@ phases 6, 8 and 12 (and, with ``--gdino``, of phase 16) down by kernel.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -286,7 +303,7 @@ from vlfm_tpu_torch.ops.windows import read_window, window_index, write_window
 from vlfm_tpu_torch.parallel.detection_pipeline import DetectionPipeline, VQAVeto
 from vlfm_tpu_torch.parallel.engine import PerceptionEngine
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy, PointNavState
-from vlfm_tpu_torch.parallel.mesh import episode_sharding, make_mesh
+from vlfm_tpu_torch.parallel.mesh import SplitDense, episode_sharding, make_mesh, shard_episode_batch, shard_params_tp
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.policy import reality as REAL
 from vlfm_tpu_torch.policy.itm import TURN_LEFT, update_objects, update_obstacles
@@ -543,6 +560,18 @@ SEMEXP_STEPS = 16
 # phase 27: the serving bundle
 BUNDLE_STEPS = 6  # phase 20's recorded dispatches replayed through the bundle-served stack
 BUNDLE_FARM = dict(lanes=8, episodes=8, steps=10)  # run.py --farm --weights-dir
+TP_MESH = dict(devices=4, model_parallel=2)  # phase 28: 2 data rows x 2 model columns, all on the one card
+TP_DENSE_IMAGE = 39 * 4 + 12 * 6 + 6 * 4 + 1  # Dense calls of one image call: ViT-g, the Q-Former, vision_proj
+# Phase 28 (a): the split ITM against the unsplit call. With random weights
+# the cosines are about 1e-2 in size; on the card the split moves them by
+# 4.9e-4 and vision_proj's output (the image embeddings before the norm) by
+# 8.9e-3 in L2 norm relative to the unsplit one's, and one ViT-g
+# SplitDense's shards swapped (the planted fault, which must fail) by 3.5e-3
+# and 1.4e-1. The limits lie between.
+TP_COS_ATOL = 2e-3
+TP_FEAT_RTOL = 2e-2
+TP_OWL_ATOL = 3e-2  # phase 28 (b): OWL-ViT split against unsplit, bf16 serving (tests/test_torch_blip2_itm.py's)
+TP_FARM_EPISODES = 8  # phase 28 (c): one round of BATCH_LANES lanes (recycling over the mesh: test_torch_mesh.py)
 
 
 def log(msg: str) -> None:
@@ -3078,9 +3107,10 @@ def phase_tiny_vitdet() -> None:
         check(launched == (0, 0, 0), f"tiny ViT-det {name}: the encoder launched a kernel")
 
 
-def encode_timing(label: str, fn, smi: str) -> dict:
+def encode_timing(label: str, fn, smi: str, tag: str = "vitdet-time") -> dict:
     """Wall (median of 5), device time and idle share (torch.profiler),
-    launches and the peak of device memory above what was held before."""
+    launches, host syncs and the peak of device memory above what was held
+    before, of one call of ``fn``."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -3089,10 +3119,10 @@ def encode_timing(label: str, fn, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated() - held
     kernels, copies, busy, wall = launch_profile(fn)
     r = dict(ms=wall_ms(fn, reps=5, warmup=1), device_ms=busy, idle=1 - busy / wall, kernels=kernels,
-             copies=copies, peak_gib=peak / 2**30)
-    log(f"[vitdet-time] {label}: {r['ms']:.2f} ms wall (median of 5); under the profiler {busy:.2f} ms of device "
-        f"time, idle share {r['idle']:.3f}; {kernels} kernel launches + {copies} copies/sets; peak device memory "
-        f"{r['peak_gib']:.2f} GiB above the {held / 2**30:.2f} GiB held; on {smi}")
+             copies=copies, syncs=host_syncs(fn), peak_gib=peak / 2**30)
+    log(f"[{tag}] {label}: {r['ms']:.2f} ms wall (median of 5); under the profiler {busy:.2f} ms of device time, "
+        f"idle share {r['idle']:.3f}; {kernels} kernel launches + {copies} copies/sets, {r['syncs']} host syncs; "
+        f"peak device memory {r['peak_gib']:.2f} GiB above the {held / 2**30:.2f} GiB held; on {smi}")
     return r
 
 
@@ -3241,22 +3271,26 @@ def phase_semexp(engine: PerceptionEngine, det, sam, pointnav, smi: str) -> dict
     return launches
 
 
-def phase_sharded_farm(spec, oracle: dict, smi: str) -> None:
+def phase_sharded_farm(spec, oracle: dict, smi: str, mesh=None, label: str = "make_mesh(1)",
+                       episodes: int = FARM_EPISODES) -> None:
     """(e) Phase 20's oracle-fed farm with ``sharding=`` over a one-device
-    mesh equals the unsharded farm field for field."""
+    mesh (``mesh`` None; phase 28 passes its (2, 2) mesh and fewer
+    episodes) equals the unsharded farm field for field on its first
+    ``episodes`` seeds."""
     cfg = VLFMConfig()
-    mesh = make_mesh(1)
-    check(mesh.shape == {"data": 1, "model": 1} and mesh.data_devices() == [DEV], "the one-card mesh")
-    seeds = list(range(FARM_EPISODES))
+    if mesh is None:
+        mesh = make_mesh(1)
+        check(mesh.shape == {"data": 1, "model": 1} and mesh.data_devices() == [DEV], "the one-card mesh")
+    seeds = list(range(episodes))
     res, stats = run_episodes_farm(seeds, lanes=BATCH_LANES, pointnav="greedy", spec=spec, cfg=cfg,
                                    plan_name="open_room_plan", env_cfg=EnvConfig(), workers=FARM_WORKERS,
                                    max_steps=EPISODE_STEPS, sharding=episode_sharding(mesh))
-    check(set(res) == set(oracle), "the sharded farm lost an episode")
+    check(set(res) == set(seeds), "the sharded farm lost an episode")
     for seed in seeds:
         check(dataclasses.asdict(res[seed]) == dataclasses.asdict(oracle[seed]),
               f"sharded farm seed {seed}: {res[seed]} against the unsharded farm's {oracle[seed]}")
-    log(f"[mesh] the oracle farm with sharding=episode_sharding(make_mesh(1)) (unpacked transport, one dispatch "
-        f"per data device) equals phase 20's unsharded farm field for field over {FARM_EPISODES} episodes; "
+    log(f"[mesh] the oracle farm with sharding=episode_sharding({label}) (unpacked transport, one dispatch "
+        f"per data row) equals phase 20's unsharded farm field for field over {episodes} episodes; "
         f"{farm_summary(stats)}; on {smi}")
 
 
@@ -3396,6 +3430,166 @@ def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: to
     return launches
 
 
+# --- phase 28 ----------------------------------------------------------------
+def split_calls(rows) -> tuple[list, list]:
+    """Forward hooks on every ``SplitDense`` and every whole ``Dense`` of
+    each row: per row, a count of split calls, of split calls over other
+    than TP_MESH's model columns, and of whole calls."""
+    counts, handles = [], []
+    for row in rows:
+        c = {"split": 0, "other_shards": 0, "whole": 0}
+
+        def hook(mod, args, out, c=c):
+            if isinstance(mod, SplitDense):
+                c["split"] += 1
+                c["other_shards"] += len(mod.weights) != TP_MESH["model_parallel"]
+            else:
+                c["whole"] += 1
+
+        handles += [m.register_forward_hook(hook) for m in row.modules()
+                    if isinstance(m, (SplitDense, torch.nn.Linear))]
+        counts.append(c)
+    return counts, handles
+
+
+def max_diff(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.float() - want.float()) / torch.linalg.vector_norm(want.float()))
+
+
+@contextlib.contextmanager
+def outputs_of(modules):
+    """The outputs of ``modules``' calls inside the block, in call order."""
+    outs = []
+    handles = [m.register_forward_hook(lambda mod, args, out: outs.append(out)) for m in modules]
+    try:
+        yield outs
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def swap_shards(split: SplitDense) -> None:
+    """Swap a two-column ``SplitDense``'s weight and bias blocks in place."""
+    with torch.no_grad():
+        for blocks in (split.weights, split.biases):
+            if blocks is not None:
+                first = blocks[0].clone()
+                blocks[0].copy_(blocks[1])
+                blocks[1].copy_(first)
+
+
+def phase_tensor_parallel(engine: PerceptionEngine, det, spec, oracle: dict, rgb: torch.Tensor, smi: str) -> dict:
+    """(a) Phase 6's BLIP2-ITM split over a (2, 2) mesh on the card: the 8
+    frames 4 + 4 over the data rows, every Dense of the image call split
+    over the row's 2 model columns, held to the unsplit B=8 call, K1 and K3
+    counted, both timed; (b) phase 11's OWL-ViT split the same way, held to
+    the unsplit detect; (c) phase 20's oracle farm over the mesh."""
+    mesh = make_mesh(devices=[DEV] * TP_MESH["devices"], model_parallel=TP_MESH["model_parallel"])
+    check(mesh.shape == {"data": 2, "model": 2} and mesh.data_devices() == [DEV, DEV]
+          and mesh.model_devices(1) == [DEV, DEV], "the (2, 2) mesh")
+    log(f"[tp] mesh {mesh.shape}: data rows' lead devices {[str(d) for d in mesh.data_devices()]}, model columns "
+        f"{[[str(d) for d in mesh.model_devices(r)] for r in range(2)]}")
+    # (a) BLIP2-ITM, tp x dp.
+    t0 = time.perf_counter()
+    b = rgb.shape[0]
+    with outputs_of([engine.itm.module.vision_proj]) as outs:
+        want = engine.score(rgb, TARGET)
+    want_feats = outs[0]
+    held = torch.cuda.memory_allocated()
+    t_split = time.perf_counter()
+    rows = shard_params_tp(engine.itm.module, mesh)
+    torch.cuda.synchronize()
+    log(f"[tp] shard_params_tp of BLIP2-ITM over the mesh: {time.perf_counter() - t_split:.2f} s, "
+        f"{(torch.cuda.memory_allocated() - held) / 2**30:.2f} GiB for the two rows' copies")
+    engines = [PerceptionEngine(BLIP2ITM(engine.itm.cfg, row), engine.tokenizer, engine.text_prompt) for row in rows]
+    check([e.itm.device for e in engines] == mesh.data_devices(), "a split ITM is not on its row's lead device")
+    for e in engines:
+        e.text_features(TARGET)
+    blocks = shard_episode_batch(rgb, mesh)
+    check([tuple(blk.shape) for blk in blocks] == [(b // 2, *rgb.shape[1:])] * 2, "the frames split 4 + 4")
+
+    def split_score():
+        return torch.cat([e.score(blk, TARGET) for e, blk in zip(engines, blocks)])
+
+    def agreement(label: str) -> bool:
+        """Score through the rows; log the cosines' largest difference from
+        the unsplit call's and the image embeddings' relative one, and
+        return whether both are within their limits."""
+        with outputs_of([row.vision_proj for row in rows]) as outs:
+            got = split_score()
+        feats = torch.cat(outs)
+        check(got.shape == want.shape and feats.shape == want_feats.shape and bool(torch.isfinite(got).all()),
+              f"{label}: cosines or embeddings of the wrong shape, or not finite")
+        cos_diff, feat_diff = max_diff(got, want), rel_l2(feats, want_feats)
+        log(f"[tp] {label}, B={b} as 4 + 4: cosines {tuple(got.shape)} {got.dtype} (largest |cosine| "
+            f"{float(want.abs().max()):.3e}), largest difference from the unsplit B={b} call {cos_diff:.3e} "
+            f"(limit {TP_COS_ATOL}); vision_proj's output {tuple(feats.shape)}, L2 difference relative to the "
+            f"unsplit one's {feat_diff:.3e} (limit {TP_FEAT_RTOL}); bit-equal "
+            f"{bool(torch.equal(got, want) and torch.equal(feats, want_feats))}; on {smi}")
+        return cos_diff <= TP_COS_ATOL and feat_diff <= TP_FEAT_RTOL
+
+    counts, handles = split_calls(rows)
+    torch.cuda.synchronize()
+    add_layer_norm.launches = layer_norm.launches = 0
+    attention.launches = 0
+    split_score()
+    torch.cuda.synchronize()
+    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    for h in handles:
+        h.remove()
+    log(f"[tp] Dense calls per row in the split image call: {counts} (expect {TP_DENSE_IMAGE} split, all with "
+        f"{TP_MESH['model_parallel']} shards, 0 whole)")
+    check(all(c == {"split": TP_DENSE_IMAGE, "other_shards": 0, "whole": 0} for c in counts),
+          "a row's image call ran a Dense that is not split over its 2 model columns")
+    log(f"[tp] K1 {launches['layer_norm']} launches (expect {2 * LAUNCHES_IMAGE}), K3 {launches['attention']} "
+        f"(expect {2 * ATTN_LAUNCHES_IMAGE}): one unsplit image call's per data row")
+    check(launches == dict(layer_norm=2 * LAUNCHES_IMAGE, attention=2 * ATTN_LAUNCHES_IMAGE),
+          "the split ITM call's K1 or K3 launch count")
+    launches = with_fused(launches, "tp", 2 * FUSED_IMAGE)
+    check(agreement("BLIP2-ITM split over the (2, 2) mesh"), "the split ITM differs from the unsplit call")
+    whole = encode_timing(f"BLIP2-ITM unsplit, B={b} in one call", lambda: engine.score(rgb, TARGET), smi, "tp-time")
+    split = encode_timing(f"BLIP2-ITM split over the (2, 2) mesh, B={b} as 4 + 4", split_score, smi, "tp-time")
+    log(f"[tp] split against unsplit: device ms x{split['device_ms'] / whole['device_ms']:.2f}, launches "
+        f"x{split['kernels'] / whole['kernels']:.2f}, wall x{split['ms'] / whole['ms']:.2f}; on {smi}")
+    # The planted fault: row 0's middle ViT-g SplitDense with its shards swapped.
+    vit_splits = [(name, m) for name, m in rows[0].vision.named_modules() if isinstance(m, SplitDense)]
+    name, fault = vit_splits[len(vit_splits) // 2]
+    swap_shards(fault)
+    check(not agreement(f"planted fault: row 0's vision.{name} with its 2 shards swapped"),
+          "the check passed a split ITM with one SplitDense's shards swapped")
+    del rows, engines, split_score, agreement
+    torch.cuda.empty_cache()
+    # (b) OWL-ViT, the same split.
+    t1 = time.perf_counter()
+    images = det.preprocess(rgb)
+    ids, mask = (torch.as_tensor(a, device=DEV) for a in encode_queries(COCO_CLASSES))
+    want_boxes, want_logits = det.detect(images, ids, mask)
+    rows = shard_params_tp(det.module, mesh)
+    n_split = [sum(isinstance(m, SplitDense) for m in row.modules()) for row in rows]
+    outs = [OwlViTDetector(det.cfg, row).detect(blk, ids, mask)
+            for row, blk in zip(rows, shard_episode_batch(images, mesh))]
+    boxes, logits = (torch.cat(t) for t in zip(*outs))
+    box_diff, logit_diff = max_diff(boxes, want_boxes), max_diff(logits, want_logits)
+    log(f"[tp] OWL-ViT base-32 split over the (2, 2) mesh ({n_split} SplitDense per row), B={b} as 4 + 4 over the "
+        f"{len(COCO_CLASSES)} COCO prompts: largest difference from the unsplit detect: boxes {box_diff:.3e}, "
+        f"logits {logit_diff:.3e} (largest |logit| {float(want_logits.float().abs().max()):.2f}; tolerance "
+        f"{TP_OWL_ATOL}), bit-equal {bool(torch.equal(boxes, want_boxes) and torch.equal(logits, want_logits))}; on {smi}")
+    check(boxes.shape == want_boxes.shape and logits.shape == want_logits.shape, "split OWL-ViT shapes")
+    check(box_diff <= TP_OWL_ATOL and logit_diff <= TP_OWL_ATOL, "split OWL-ViT differs from the unsplit detect")
+    del rows, outs
+    torch.cuda.empty_cache()
+    # (c) The farm over the mesh.
+    t2 = time.perf_counter()
+    phase_sharded_farm(spec, oracle, smi, mesh, "make_mesh(devices=[cuda:0] * 4, model_parallel=2)", TP_FARM_EPISODES)
+    log(f"[tp] phase 28 by part: (a) ITM {t1 - t0:.1f} s, (b) OWL-ViT {t2 - t1:.1f} s, (c) the farm "
+        f"{time.perf_counter() - t2:.1f} s")
+    return launches
+
+
 def farm_summary(stats) -> str:
     return (f"{stats.env_steps} env steps in {stats.wall_time:.2f} s ({stats.steps_per_sec:.1f} env-steps/s), "
             f"{stats.dispatches} dispatches, "
@@ -3516,6 +3710,8 @@ def main() -> None:
     lap("26 ViT-det SAM, stochastic PointNav, SemExp, mesh")
     bundle_run = phase_bundle(engine, det, sam, spec, full_stack_record, rgb, smi)
     lap("27 bundle")
+    tp_run = phase_tensor_parallel(engine, det, spec, oracle_farm, rgb, smi)
+    lap("28 tensor parallelism")
     del engine, det, sam
     log("[phase-time] " + "; ".join(f"{name} {t - t0:.1f} s" for (_, t0), (name, t) in zip(marks, marks[1:]))
         + f"; total {marks[-1][1] - marks[0][1]:.1f} s")
@@ -3544,11 +3740,12 @@ def main() -> None:
           "the SemExp loop launched no K1, K2 or K3")
     check(all(bundle_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the bundle-served full stack launched no K1, K2 or K3")
+    check(tp_run["layer_norm"] > 0 and tp_run["attention"] > 0, "the split ITM path launched no K1 or K3")
     k1_runs = {"itm_spin": main_run, "detection": det_run, "gdino_detection": gdino_run,
                "batched_spin": batched_run, "object_map": objmap_run, "decision_step": episodes_run,
                "full_stack_step": full_stack_run, "vqa_veto": veto_run, "vqa_full_stack_step": vqa_stack_run,
                "habitat_eval": habitat_run, "reality": reality_run, "vitdet_detection": vitdet_run,
-               "semexp": semexp_run, "bundle_full_stack": bundle_run}
+               "semexp": semexp_run, "bundle_full_stack": bundle_run, "tensor_parallel_itm": tp_run}
     check(all(r["layer_norm_fused"] > 0 for r in k1_runs.values()), "a K1 path launched no fused add_layer_norm")
     record = {
         "kernels": [
@@ -3574,7 +3771,8 @@ def main() -> None:
                            "vqa_full_stack_step": vqa_stack_run["attention"],
                            "habitat_eval": habitat_run["attention"], "reality": reality_run["attention"],
                            "vitdet_detection": vitdet_run["attention"], "semexp": semexp_run["attention"],
-                           "bundle_full_stack": bundle_run["attention"]}, k3),
+                           "bundle_full_stack": bundle_run["attention"],
+                           "tensor_parallel_itm": tp_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
         ]

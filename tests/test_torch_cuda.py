@@ -20,7 +20,7 @@ from vlfm_tpu_torch.mapping import value_map as VM
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models.blip2_itm import BLIP2ITM, BLIP2ITMConfig
 from vlfm_tpu_torch.models import grounding_dino as GD
-from vlfm_tpu_torch.models.layers import FusedQKVAttention, merge_heads
+from vlfm_tpu_torch.models.layers import Dense, FusedQKVAttention, merge_heads
 from vlfm_tpu_torch.models import pointnav as PN
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.ops import attention as A
@@ -28,6 +28,7 @@ from vlfm_tpu_torch.ops import deform_gather as DG
 from vlfm_tpu_torch.ops import threefry as T
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.norms import add_layer_norm, bf16_tolerance, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.parallel import mesh as MESH
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
 from vlfm_tpu_torch.runner import packing as PK
@@ -175,6 +176,46 @@ def test_tiny_blip2_card_matches_cpu_and_counts_launches(dev):
     assert A.attention.launches - attn_before == 2  # one K3 launch per ViT block
     want = cpu.cosine(imgs, ids, mask)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("x_on_card", [True, False])
+def test_split_dense_on_the_card_matches_dense(dev, x_on_card):
+    """ViT-g's qkv at B=2 split over [cuda:0] * 2: each block computed on
+    the card, gathered on x's device, within one bf16 rounding of the
+    whole product (cuBLAS may tile an (M, K, N/2) GEMM otherwise)."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    whole = Dense(1408, 4224, device=dev).requires_grad_(False)
+    whole.weight.copy_(torch.randn(4224, 1408, generator=gen, device=dev) * 1408**-0.5)
+    whole.bias.copy_(torch.randn(4224, generator=gen, device=dev))
+    whole = whole.to(torch.bfloat16)
+    split = MESH.SplitDense(whole, [dev, dev])
+    assert all(w.device == dev for w in split.weights)
+    x = torch.randn(2, 257, 1408, generator=gen, device=dev).to(torch.bfloat16)
+    x = x if x_on_card else x.cpu()
+    got = split(x)
+    assert got.device == x.device and got.dtype == torch.bfloat16
+    want = whole(x.to(dev)).to(x.device)
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=2**-7)
+
+
+def test_tiny_itm_split_over_a_model_axis_on_the_card_matches_unsplit(dev):
+    cfg = dataclasses.replace(BLIP2ITMConfig.tiny(), compute_dtype=torch.float32)
+    gpu = BLIP2ITM(cfg, BLIP2ITM.init_random(cfg, seed=0, device="cpu").module.to(dev))
+    mesh = MESH.make_mesh(devices=[dev] * 4, model_parallel=2)
+    rows = MESH.shard_params_tp(gpu.module, mesh)
+    assert all(sum(isinstance(m, MESH.SplitDense) for m in row.modules()) == 30 for row in rows)
+    rng = np.random.default_rng(0)
+    imgs = torch.from_numpy(rng.uniform(0, 1, (4, 56, 56, 3)).astype(np.float32)).to(dev)
+    ids = torch.from_numpy(rng.integers(4, 56, (2, 16)).astype(np.int64)).to(dev)
+    mask = torch.ones(2, 16, dtype=torch.bool, device=dev)
+    before, attn_before = layer_norm.launches, A.attention.launches
+    got = torch.cat([BLIP2ITM(cfg, row).cosine(blk, ids, mask)
+                     for row, blk in zip(rows, MESH.shard_episode_batch(imgs, mesh))])
+    torch.cuda.synchronize()
+    # Per row: the image call's 11 K1 launches and the text call's 5; K3 once per ViT block.
+    assert layer_norm.launches - before == 2 * (11 + 5)
+    assert A.attention.launches - attn_before == 2 * 2
+    torch.testing.assert_close(got, gpu.cosine(imgs, ids, mask), atol=1e-5, rtol=0)
 
 
 def test_value_map_update_card_matches_cpu(dev):

@@ -3,14 +3,18 @@
 A 2-device CPU mesh (``make_mesh(devices=[cpu, cpu])``): an episode batch
 split over its data axis gives JAX's shards leaf for leaf
 (``jax.device_put`` with ``NamedSharding(mesh, P("data"))`` over two of
-conftest's host devices) and concatenates back bit for bit; replicated placement
-and ``shard_params_tp`` copy whole; a model axis above 1 raises, as does
-``best_devices`` asking for CUDA devices the box does not have (JAX falls
-back to CPU devices there; the port does not hide the device). The farm
-with ``sharding=episode_sharding(mesh)`` equals the unsharded farm field
-for field (tests/test_parallel.py holds JAX's sharded farm so), oracle-fed
-with the greedy controller and with a PointNav replicated per device, and
-with the tiny full-stack perception.
+conftest's host devices) and concatenates back bit for bit; replicated
+placement and ``shard_params_tp`` copy whole; ``best_devices`` raises when
+asked for CUDA devices the box does not have (JAX falls back to CPU
+devices there; the port does not hide the device). A (2, 2) mesh: the data
+rows' lead devices, each row's block equal to JAX's shard on every model
+column, and ``shard_params_tp`` splitting a ``Dense`` and keeping an
+``nn.Linear`` whole (``tests/test_torch_tensor_parallel.py`` holds the split
+to JAX's placement). The farm with ``sharding=episode_sharding(mesh)``
+equals the unsharded farm field for field (tests/test_parallel.py holds
+JAX's sharded farm so), oracle-fed with the greedy controller on the
+(2, 1) and (2, 2) meshes, with a PointNav replicated per device, and with
+the tiny full-stack perception.
 """
 
 import dataclasses
@@ -24,6 +28,8 @@ from jax.sharding import NamedSharding, PartitionSpec as P
 
 from tests.test_torch_sim_farm import CFG, ENV, SEEDS, SPEC, farm, ring_prefix
 from tests.test_torch_step import one_torch_thread  # noqa: F401
+from vlfm_tpu.parallel import mesh as JM
+from vlfm_tpu_torch.models.layers import Dense
 from vlfm_tpu_torch.models.pointnav import PointNavPolicy
 from vlfm_tpu_torch.parallel import mesh as M
 from vlfm_tpu_torch.policy import itm
@@ -48,8 +54,11 @@ def test_make_mesh_shapes_and_devices():
     assert mesh.data_devices() == [CPU, CPU]
     mesh4 = M.make_mesh(devices=[CPU] * 4, model_parallel=2)
     assert mesh4.shape == {"data": 2, "model": 2}
-    with pytest.raises(NotImplementedError, match="tensor parallelism over a model axis above 1"):
-        mesh4.data_devices()
+    assert mesh4.data_devices() == [CPU, CPU] and mesh4.model_devices(1) == [CPU, CPU]
+    named = M.make_mesh(devices=[torch.device("cpu", i) for i in range(4)], model_parallel=2)
+    assert named.data_devices() == [torch.device("cpu", 0), torch.device("cpu", 2)]
+    assert named.model_devices(1) == [torch.device("cpu", 2), torch.device("cpu", 3)]
+    assert M.episode_sharding(named).data_devices() == named.data_devices()
     with pytest.raises(ValueError):
         M.make_mesh(devices=[CPU] * 3, model_parallel=2)
 
@@ -82,6 +91,24 @@ def test_episode_shards_match_jax_and_gather_back():
         M.shard_episode_batch(_batch(b=3), mesh)
 
 
+def test_episode_blocks_on_a_model_axis_match_jax_for_every_column():
+    """On a (2, 2) mesh an episode block lives on its row's lead device; JAX's
+    ``P("data")`` replicates it over the model axis, so every column's shard
+    equals the row's block."""
+    batch = _batch()
+    blocks = M.shard_episode_batch(batch, M.make_mesh(devices=[CPU] * 4, model_parallel=2))
+    assert len(blocks) == 2
+    jmesh = JM.make_mesh(4, model_parallel=2)
+    jtree = jax.device_put({"depth": batch["depth"].numpy(), "pose": tuple(t.numpy() for t in batch["pose"])},
+                           NamedSharding(jmesh, P("data")))
+    for leaf, jleaf in ((lambda b: b["depth"], jtree["depth"]), (lambda b: b["pose"][0], jtree["pose"][0]),
+                        (lambda b: b["pose"][1], jtree["pose"][1])):
+        shards = {s.device: s for s in jleaf.addressable_shards}
+        for r in range(2):
+            for c in range(2):
+                np.testing.assert_array_equal(leaf(blocks[r]).numpy(), np.asarray(shards[jmesh.devices[r, c]].data))
+
+
 def _leaves(tree):
     out = []
     map_tensors(out.append, tree)
@@ -110,8 +137,16 @@ def test_replicated_and_shard_params_tp_copy_whole():
     module = torch.nn.Linear(3, 2)
     mods = M.shard_params_tp(module, mesh)
     assert all(m is not module and torch.equal(m.weight, module.weight) for m in mods)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, tensor parallelism"):
-        M.shard_params_tp(params, M.make_mesh(devices=[CPU] * 2, model_parallel=2))
+    # A model axis of 2: each row's copy splits its Dense over the row's
+    # devices and keeps the plain nn.Linear whole.
+    net = torch.nn.Sequential(Dense(3, 4), torch.nn.Linear(4, 2))
+    rows = M.shard_params_tp(net, M.make_mesh(devices=[CPU] * 4, model_parallel=2))
+    x = torch.randn(5, 3, generator=torch.Generator().manual_seed(0))
+    for row in rows:
+        assert row is not net and isinstance(row[0], M.SplitDense) and type(row[1]) is torch.nn.Linear
+        assert torch.equal(torch.cat(list(row[0].weights)), net[0].weight)
+        assert all(w.data_ptr() != net[0].weight.data_ptr() for w in row[0].weights)
+        torch.testing.assert_close(row(x), net(x), atol=1e-6, rtol=0)
 
 
 def _assert_results_equal(got, want):
@@ -132,6 +167,14 @@ def test_sharded_oracle_farm_equals_unsharded(unsharded):
     assert stats.env_steps == sum(r.steps for r in results.values())
     with pytest.raises(ValueError, match="do not split"):
         farm(SEEDS, sharding=M.episode_sharding(M.make_mesh(devices=[CPU] * 4)))
+
+
+def test_farm_over_a_data_and_model_mesh_equals_unsharded(unsharded):
+    """The (2, 2) mesh splits the lanes over its two data rows' lead
+    devices, as JAX's farm tier splits them over its data axis."""
+    sharding = M.episode_sharding(M.make_mesh(devices=[CPU] * 4, model_parallel=2))
+    results, _ = farm(SEEDS, ring_prefix=ring_prefix("mesh_tp"), sharding=sharding)
+    _assert_results_equal(results, unsharded)
 
 
 def test_sharded_farm_replicates_pointnav():

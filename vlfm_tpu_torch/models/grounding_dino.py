@@ -42,7 +42,9 @@ HF). Query selection takes the top scores by a stable descending sort, so
 ties keep index order as ``jax.lax.top_k`` does.
 
 Inference only: no dropout or drop-path, full pixel masks (square resized
-images, HF with ``pixel_mask=None``). The HF converter is not ported.
+images, HF with ``pixel_mask=None``). A HF GroundingDinoForObjectDetection
+state dict converts to JAX's tree through ``convert_hf_grounding_dino``
+(below), which ``GroundingDinoDetector.from_jax_params`` loads.
 """
 
 from __future__ import annotations

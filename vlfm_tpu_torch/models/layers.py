@@ -26,15 +26,19 @@ from vlfm_tpu_torch.ops.attention import attention as fused_attention, qkv_views
 from vlfm_tpu_torch.ops.norms import add_layer_norm, layer_norm
 
 
+def dense(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor]) -> torch.Tensor:
+    """``F.linear`` in ``promote_types(x, weight)``, as flax's ``nn.Dense``
+    promotes a bf16 activation against an f32 kernel."""
+    dt = torch.promote_types(x.dtype, weight.dtype)
+    return F.linear(x.to(dt), weight.to(dt), None if bias is None else bias.to(dt))
+
+
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in ``promote_types(input, weight)``, as
-    flax's ``nn.Dense`` promotes a bf16 activation against an f32 kernel.
+    """``nn.Linear`` that computes by ``dense``'s promotion rule.
     ``bias=False`` is flax's ``use_bias=False``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt = torch.promote_types(x.dtype, self.weight.dtype)
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        return dense(x, self.weight, self.bias)
 
 
 class Norm(nn.Module):

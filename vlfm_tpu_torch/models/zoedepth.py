@@ -25,7 +25,9 @@ to PyTorch's layout and back. Each resize keeps its own corner convention
 input pixels are f32, and every product promotes against the bf16
 weights), and ``predict`` runs under ``precision.exact_f32`` on the card.
 No kernel of the JAX package computes ZoeDepth (it is plain flax), so the
-port runs it as PyTorch ops. The HF converter is not ported.
+port runs it as PyTorch ops. A HF ZoeDepthForDepthEstimation state dict
+converts to JAX's tree through ``convert_hf_zoedepth`` (below), which
+``ZoeDepth.from_jax_params`` loads.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ process on the card:
   over all lanes (``runner/packing.py``: one packed host-to-device copy
   from pinned memory, one (B, 4) read back) and pushes small action
   records back.
-- All lanes form ONE group with one device state (one per data device
-  under ``sharding=``, ``parallel/mesh.py``). JAX splits them into two
+- All lanes form ONE group with one device state (one per data row of
+  the mesh under ``sharding=``, ``parallel/mesh.py``). JAX splits them into two
   groups dispatched ping-pong, since its dispatch returns at once; the
   port's dispatch blocks the host (the step's sweep loops and gated SAM
   read back), so a second group would only halve the batch and double the
@@ -40,6 +40,7 @@ thin host links.
 
 from __future__ import annotations
 
+import copy
 import itertools
 import multiprocessing as mp
 import os
@@ -307,14 +308,16 @@ def run_episodes_farm(
     default prefix is unique to this process and call.
 
     With ``sharding`` (``parallel.mesh.episode_sharding(mesh)``) the lanes
-    split into one contiguous block per data device of the mesh, each with
-    its own state there, and a dispatch runs block by block: each block's
-    inputs cross to its device on their own (the packed transport is off,
-    as in JAX) and its (B / n, 4) outputs come back in one read. A
-    ``PointNavPolicy`` is copied to each device (``shard_params_tp``);
-    ``perception`` must live on every device of the mesh (one card, or the
-    CPU). Lanes split as episodes do, so the results equal the unsharded
-    farm's. ``device`` is then the mesh's.
+    split into one contiguous block per data row of the mesh, each with its
+    own state on the row's lead device, at any model axis (JAX's farm
+    splits its lanes over the data axis alone), and a dispatch runs block
+    by block: each block's inputs cross to its device on their own (the
+    packed transport is off, as in JAX) and its (B / n, 4) outputs come
+    back in one read. A ``PointNavPolicy`` is copied whole to each lead
+    device, as JAX's farm places it whole; ``perception`` must live on
+    every lead device of the mesh (one card, or the CPU). Lanes split as
+    episodes do, so the results equal the unsharded farm's. ``device`` is
+    then the mesh's.
 
     Returns ({seed: EpisodeResult}, FarmStats)."""
     import torch
@@ -351,7 +354,7 @@ def run_episodes_farm(
     per = lanes // len(devices)
     blocks = [(d, i * per, (i + 1) * per) for i, d in enumerate(devices)]  # (device, first lane, end)
     if isinstance(pointnav, PointNavPolicy) and sharding is not None:
-        block_pointnav = [PointNavPolicy(m) for m in mesh_lib.shard_params_tp(pointnav.module, sharding.mesh)]
+        block_pointnav = [PointNavPolicy(copy.deepcopy(pointnav.module).to(d)) for d in devices]
     else:
         block_pointnav = [pointnav] * len(devices)
     ring_prefix = ring_prefix or f"vlfm_farm{os.getpid()}_{next(_farm_ids)}"
