@@ -321,7 +321,7 @@ from vlfm_tpu_torch.runner.habitat_eval import FakeHabitatEnv, evaluate
 from vlfm_tpu_torch.runner.sim_farm import run_episodes_farm
 from vlfm_tpu_torch.utils.geometry import rho_theta, xyz_yaw_to_tf_matrix
 from vlfm_tpu_torch.utils.img import resize_area
-from vlfm_tpu_torch.utils.profiling import StepTimer
+from vlfm_tpu_torch.utils.profiling import StepTimer, counters, reset_counters
 
 DEV = torch.device("cuda", 0)
 TARGET = "chair"
@@ -583,12 +583,19 @@ def check(cond: bool, msg: str) -> None:
         raise RuntimeError(f"check failed: {msg}")
 
 
+def counted(name: str) -> int:
+    """The counter ``name`` (``utils/profiling.py``): ``K1.launches``,
+    ``K1.fused_launches``, ``K2.launches``, ``K3.launches``, ``K4.launches``;
+    0 where nothing counted since ``reset_counters()``."""
+    return counters().get(name, 0)
+
+
 def with_fused(launches: dict, label: str, want: int | None = None) -> dict:
     """``launches`` and ``layer_norm_fused``: how many of the path's K1
     launches (counts set to 0 before it) took the add before them into the
     launch (``add_layer_norm``), checked against ``want`` where the path's
     model calls fix it."""
-    fused = add_layer_norm.launches
+    fused = counted("K1.fused_launches")
     log(f"[{label}] K1 fused with the add before it: {fused} of {launches['layer_norm']} launches"
         + ("" if want is None else f" (expect {want})"))
     check(want is None or fused == want, f"{label}: fused K1 launch count")
@@ -863,11 +870,11 @@ def phase_fused_route(engine: PerceptionEngine, det, rgb: torch.Tensor) -> None:
     for b in (BATCH_LANES, 1):
         images = ((engine.itm.preprocess(rgb[:b]) - torch.tensor(BLIP_MEAN, device=DEV))
                   / torch.tensor(BLIP_STD, device=DEV)).to(itm.cfg.compute_dtype)
-        add_layer_norm.launches = layer_norm.launches = 0
+        reset_counters()
         embeds = itm.vision(images)
         queries = itm.query_tokens.to(itm.cfg.compute_dtype).repeat(b, 1, 1)
         out = itm.qformer(queries, image_embeds=embeds, is_query=True)
-        counts = (layer_norm.launches, add_layer_norm.launches)
+        counts = (counted("K1.launches"), counted("K1.fused_launches"))
         want_embeds = vit_unfused(itm.vision, images)
         want_out = qformer_unfused(itm.qformer, queries, embeds)
         log(f"[fused] B={b}: ViT-g (bf16 {tuple(embeds.shape)}) and the Q-Former's query branch through the fused "
@@ -880,9 +887,9 @@ def phase_fused_route(engine: PerceptionEngine, det, rgb: torch.Tensor) -> None:
     m = det.module
     images = det.preprocess(rgb)
     ids, mask = (torch.as_tensor(a, device=DEV) for a in encode_queries(COCO_CLASSES))
-    add_layer_norm.launches = layer_norm.launches = 0
+    reset_counters()
     boxes, logits = m(images, ids, mask)
-    counts = (layer_norm.launches, add_layer_norm.launches)
+    counts = (counted("K1.launches"), counted("K1.fused_launches"))
     want_boxes, want_logits = owl_detect_unfused(m, images, ids, mask)
     same = bool(torch.equal(boxes, want_boxes) and torch.equal(logits, want_logits))
     log(f"[fused] OWL-ViT detect at B={rgb.shape[0]} over the {len(COCO_CLASSES)} COCO prompts through the fused "
@@ -965,16 +972,16 @@ def phase_tiny_model() -> None:
     tok = WordPieceTokenizer(toy_vocab(), max_len=16)
     ids, mask = tok.encode_batch(["a red chair", "a bed"])
     want = itm_cpu.cosine(imgs, ids, mask)
-    ln0, k30 = layer_norm.launches, attention.launches
+    ln0, k30 = counted("K1.launches"), counted("K3.launches")
     got = itm_gpu.cosine(imgs.to(DEV), ids.to(DEV), mask.to(DEV)).cpu()
     err = float((got - want).abs().max())
     log(
         f"[tiny] cosines gpu vs cpu: max_abs_err={err:.3e} (tol {TINY_COS_ATOL}), "
-        f"K1 {layer_norm.launches - ln0}, K3 {attention.launches - k30} launches"
+        f"K1 {counted("K1.launches") - ln0}, K3 {counted("K3.launches") - k30} launches"
     )
     check(err <= TINY_COS_ATOL, "tiny BLIP2-ITM cosines differ between card and CPU")
-    check(layer_norm.launches > ln0, "tiny model on the card did not launch K1")
-    check(attention.launches - k30 == cfg.vit.depth, "tiny model on the card: one K3 launch per ViT block")
+    check(counted("K1.launches") > ln0, "tiny model on the card did not launch K1")
+    check(counted("K3.launches") - k30 == cfg.vit.depth, "tiny model on the card: one K3 launch per ViT block")
 
 
 # --- phase 5 -----------------------------------------------------------------
@@ -1068,19 +1075,19 @@ def phase_tiny_obstacle_map() -> None:
 def phase_main_path(views, engine: PerceptionEngine, spec, cfg) -> dict:
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
     observations = spin_observations([views], cfg)
-    add_layer_norm.launches = layer_norm.launches = 0
-    attention.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     engine.text_features(TARGET)
     torch.cuda.synchronize()
-    text = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    text = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
     cosines = engine.score(rgb, TARGET)
     torch.cuda.synchronize()
-    image = dict(layer_norm=layer_norm.launches - text["layer_norm"], attention=attention.launches - text["attention"])
+    image = dict(layer_norm=counted("K1.launches") - text["layer_norm"],
+                 attention=counted("K3.launches") - text["attention"])
     info, state = spin_steps(observations, cosines[None], spec, cfg)
     action = int(info.action)
     wall = time.perf_counter() - t0
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
     log(
         f"[main] K1 launches: encode_texts {text['layer_norm']} (expect {LAUNCHES_TEXT}), "
         f"cosine_cached_text {image['layer_norm']} (expect {LAUNCHES_IMAGE}); K3 launches: encode_texts "
@@ -1253,7 +1260,7 @@ def phase_tiny_pipeline() -> None:
     rgb = torch.from_numpy(np.random.default_rng(0).integers(0, 256, (5, 48, 64, 3), dtype=np.uint8))
     for target, thr in ((COCO_TARGET, None), (OPEN_TARGET, 0.0)):
         want = make_pipeline(det_cpu, sam_cpu, cfg, 2, thr)(rgb, target)
-        ln0, k20 = layer_norm.launches, mbconv_chain.launches
+        ln0, k20 = counted("K1.launches"), counted("K2.launches")
         got = make_pipeline(det_gpu, sam_gpu, cfg, 2, thr)(rgb.to(DEV), target)
         torch.cuda.synchronize()
         (gm, gv, (gx, gs, gc)), (wm, wv, (wx, ws, wc)) = got, want
@@ -1263,14 +1270,14 @@ def phase_tiny_pipeline() -> None:
             f"[tiny-det] {target}: card vs CPU boxes/scores max_abs_err={box_err:.3e} (tol {TINY_BOX_ATOL}), "
             f"valid equal {bool(torch.equal(gv.cpu(), wv))}, cls equal {bool(torch.equal(gc.cpu(), wc))}, "
             f"{int(wv.sum())} detections, mask flips {flips:.2e} (tol {TINY_MASK_FLIPS}); "
-            f"K1 {layer_norm.launches - ln0}, K2 {mbconv_chain.launches - k20} launches"
+            f"K1 {counted("K1.launches") - ln0}, K2 {counted("K2.launches") - k20} launches"
         )
         check(box_err <= TINY_BOX_ATOL, f"tiny pipeline boxes differ between card and CPU ({target})")
         check(torch.equal(gv.cpu(), wv) and torch.equal(gc.cpu(), wc), f"tiny pipeline valid/cls ({target})")
         check(flips <= TINY_MASK_FLIPS, f"tiny pipeline masks differ between card and CPU ({target})")
-        check(layer_norm.launches > ln0, "tiny pipeline on the card did not launch K1")
+        check(counted("K1.launches") > ln0, "tiny pipeline on the card did not launch K1")
         if bool(wv.any()):
-            check(mbconv_chain.launches > k20, "tiny pipeline on the card did not launch K2")
+            check(counted("K2.launches") > k20, "tiny pipeline on the card did not launch K2")
 
 
 # --- phase 11 ----------------------------------------------------------------
@@ -1307,16 +1314,15 @@ def phase_detection_path(cfg, det, sam, rgb) -> dict:
     per_pass = chain_launches(sam.cfg.tinyvit)
     pipe_coco = make_pipeline(det, sam, cfg, cap)
     pipe_open = make_pipeline(det, sam, cfg, cap, non_coco_threshold=0.0)
-    add_layer_norm.launches = layer_norm.launches = 0
-    mbconv_chain.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     out_coco = pipe_coco(rgb, COCO_TARGET)
     torch.cuda.synchronize()
-    ln_coco, k2_coco = layer_norm.launches, mbconv_chain.launches
+    ln_coco, k2_coco = counted("K1.launches"), counted("K2.launches")
     out_open = pipe_open(rgb, OPEN_TARGET)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches)
+    launches = dict(layer_norm=counted("K1.launches"), mbconv_chain=counted("K2.launches"))
     ln_open, k2_open = launches["layer_norm"] - ln_coco, launches["mbconv_chain"] - k2_coco
 
     frames_coco = check_detections(COCO_TARGET, out_coco, b, h, w, k)
@@ -1492,11 +1498,11 @@ def phase_tiny_gdino_pipeline() -> None:
     for thr in (None, 0.0):
         want = make_gdino_pipeline(GroundingDinoQueryAdapter(gd_cpu, 64), sam_cpu, cfg, 2, non_coco_threshold=thr)(
             rgb, OPEN_TARGET)
-        k40 = deform_gather.launches
+        k40 = counted("K4.launches")
         got = make_gdino_pipeline(GroundingDinoQueryAdapter(gd_gpu, 64), sam_gpu, cfg, 2, non_coco_threshold=thr)(
             rgb.to(DEV), OPEN_TARGET)
         torch.cuda.synchronize()
-        k4 = deform_gather.launches - k40
+        k4 = counted("K4.launches") - k40
         (gm, gv, (gx, gs, gc)), (wm, wv, (wx, ws, wc)) = got, want
         box_err = max(float((gx.cpu() - wx).abs().max()), float((gs.cpu() - ws).abs().max()))
         flips = float((gm.cpu() != wm).float().mean())
@@ -1532,18 +1538,18 @@ def phase_gdino_path(cfg, adapter, owl, sam, rgb) -> dict:
     runs = [(f"{OPEN_TARGET} at threshold {cfg.non_coco_threshold}", pipe, OPEN_TARGET),
             (f"{OPEN_TARGET} at threshold 0", pipe0, OPEN_TARGET),
             (f"{COCO_TARGET} (COCO route, then the GroundingDINO retry)", pipe, COCO_TARGET)]
-    deform_gather.launches = add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     outs, counts = [], []
     for _, p, target in runs:
-        before = (deform_gather.launches, layer_norm.launches, mbconv_chain.launches)
+        before = (counted("K4.launches"), counted("K1.launches"), counted("K2.launches"))
         outs.append(p(rgb, target))
         torch.cuda.synchronize()
-        counts.append([n - n0 for n, n0 in zip((deform_gather.launches, layer_norm.launches, mbconv_chain.launches),
+        counts.append([n - n0 for n, n0 in zip((counted("K4.launches"), counted("K1.launches"), counted("K2.launches")),
                                                 before)])
     wall = time.perf_counter() - t0
-    launches = with_fused(dict(deform_gather=deform_gather.launches, layer_norm=layer_norm.launches,
-                               mbconv_chain=mbconv_chain.launches), "gdino", FUSED_DETECT)
+    launches = with_fused(dict(deform_gather=counted("K4.launches"), layer_norm=counted("K1.launches"),
+                               mbconv_chain=counted("K2.launches")), "gdino", FUSED_DETECT)
 
     _, _, _, coco_valid = pipe._coco_path(rgb, COCO_TARGET)
     hit = coco_valid.any(dim=1)
@@ -1678,13 +1684,13 @@ def phase_batched_spin(engine: PerceptionEngine, spec, cfg, smi: str) -> dict:
     b = BATCH_LANES
     lane_views = [spin_views(SPIN_VIEWS, seed=lane) for lane in range(b)]
     rgb = torch.from_numpy(np.stack([o["rgb"] for views in lane_views for o in views])).to(DEV)
-    add_layer_norm.launches = layer_norm.launches = attention.launches = 0
+    reset_counters()
     cos = torch.cat([engine.score(rgb[i:i + ITM_BATCH], TARGET) for i in range(0, len(rgb), ITM_BATCH)])
     cos = cos.float().reshape(b, SPIN_VIEWS, -1)
     observations = spin_observations(lane_views, cfg)
     info, state = spin_steps(observations, cos, spec, cfg)
     torch.cuda.synchronize()
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
     calls = len(rgb) // ITM_BATCH
     log(f"[batched] {b} lanes x {SPIN_VIEWS} views (two_room_plan seeds 0-{b - 1}): ITM on {len(rgb)} frames in "
         f"{calls} calls of {ITM_BATCH}; K1 {launches['layer_norm']} (expect {calls * LAUNCHES_IMAGE}), "
@@ -1811,10 +1817,10 @@ def phase_object_map(det_cfg, det, sam, smi: str) -> dict:
     views = spin_views(b)
     rgb = torch.from_numpy(np.stack([o["rgb"] for o in views])).to(DEV)
     pipe = make_pipeline(det, sam, det_cfg, det_cfg.sam_frame_capacity, non_coco_threshold=0.0)
-    add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = 0
+    reset_counters()
     masks, valid, (xyxy, _, _) = pipe(rgb, OPEN_TARGET)
     torch.cuda.synchronize()
-    launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches)
+    launches = dict(layer_norm=counted("K1.launches"), mbconv_chain=counted("K2.launches"))
     h, w = rgb.shape[1:3]
     check(masks.shape == (b, det_cfg.max_detections_per_frame, h, w), "object-map masks shape")
     passes = -(-int(valid.any(dim=1).sum()) // det_cfg.sam_frame_capacity)
@@ -1872,7 +1878,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     rng = threefry.PRNGKey(0, device=DEV)
     record, loop_ms = [], []
-    add_layer_norm.launches = layer_norm.launches = attention.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     for _ in range(EPISODE_STEPS):
         t_step = time.perf_counter()
@@ -1898,7 +1904,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
         loop_ms.append((time.perf_counter() - t_step) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
     modes = torch.stack([r["info"].mode for r in record]).cpu()
     n_front = torch.stack([r["info"].num_frontiers for r in record]).cpu()
     actions = torch.stack([r["info"].action for r in record]).cpu()
@@ -2083,7 +2089,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
     perception.pipeline.coco_detector._coco_queries()
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     record, loop_ms = [], []
-    add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     for k in range(EPISODE_STEPS):
         t_step = time.perf_counter()
@@ -2109,7 +2115,8 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
         loop_ms.append((time.perf_counter() - t_step) * 1e3)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
+                    mbconv_chain=counted("K2.launches"))
     frames = [int(f) for f in counter.frames]
     per_pass = chain_launches(sam.cfg.tinyvit)
     passes = [-(-f // SAM_CAPACITY) for f in frames]
@@ -2335,11 +2342,11 @@ def phase_vqa_veto(bridge: BLIP2VQA, rgb: torch.Tensor, smi: str) -> dict:
         flat_valid = valid.reshape(-1)
         yes = int(dense_logits[flat_valid].argmax(-1)[0])  # the first valid slot's answer: some keep, some drop
         gated = make_veto(bridge, yes, VQA_CAPACITY)
-        add_layer_norm.launches = layer_norm.launches = attention.launches = 0
+        reset_counters()
         out = gated(rgb, masks, valid, COCO_TARGET)
         torch.cuda.synchronize()
         passes = -(-density // VQA_CAPACITY)
-        got = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+        got = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
         for name in launches:
             launches[name] += got[name]
         log(f"[vqa] {density} valid slots of {b}x{k} at capacity {VQA_CAPACITY}: {passes} passes; K1 "
@@ -2417,7 +2424,7 @@ def phase_vqa_full_stack(engine: PerceptionEngine, det, sam, bridge: BLIP2VQA, s
     perception.pipeline.vqa_veto._question_tokens(COCO_TARGET)
     state = ITM.create_state(spec, cfg, batch=b, device=DEV)
     record = []
-    add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     for k in range(VQA_STEPS):
         for j, o in enumerate(obs_list):
@@ -2433,7 +2440,8 @@ def phase_vqa_full_stack(engine: PerceptionEngine, det, sam, bridge: BLIP2VQA, s
                 obs_list[i] = env.step(int(out_np[i, 0]))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches, mbconv_chain=mbconv_chain.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
+                    mbconv_chain=counted("K2.launches"))
     frames = [int(f) for f in vetoes.frames]
     n_valid = [int(v) for v in vetoes.valid]
     sam_passes = sum(-(-f // SAM_CAPACITY) for f in frames)
@@ -2652,11 +2660,11 @@ class CountingAgent:
         self.agent, self.acts = agent, []
 
     def act(self, obs):
-        before = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        before = (counted("K1.launches"), counted("K2.launches"), counted("K3.launches"))
         t0 = time.perf_counter()
         action = self.agent.act(obs)  # ends in a read of the action
         ms = (time.perf_counter() - t0) * 1e3
-        after = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        after = (counted("K1.launches"), counted("K2.launches"), counted("K3.launches"))
         self.acts.append((ms, *(a - b for a, b in zip(after, before))))
         self.last_obs = obs
         return action
@@ -2703,12 +2711,12 @@ def phase_habitat_eval(engine: PerceptionEngine, det, sam, pointnav, smi: str) -
 
     with tempfile.TemporaryDirectory() as tmp:
         log_dir, video_dir = os.path.join(tmp, "logs"), os.path.join(tmp, "videos")
-        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         results = evaluate(factory, agent, HABITAT_EPISODES, log_dir=log_dir, video_dir=video_dir, print_fn=log)
         wall = time.perf_counter() - t0
-        launches = dict(layer_norm=layer_norm.launches, attention=attention.launches,
-                        mbconv_chain=mbconv_chain.launches)
+        launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
+                        mbconv_chain=counted("K2.launches"))
         logged = load_logs(log_dir)
         videos = sorted(os.listdir(video_dir))
         frames = []
@@ -2894,7 +2902,7 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
         steps, episodes, ep_step = [], 1, 0
         obs = env.reset(REALITY_TARGET)
         timer = StepTimer()
-        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         for k in range(REALITY_ACTIONS):
             before, calls = clone_tree(policy.state), hooks.depth_calls
@@ -2913,8 +2921,8 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
                 obs, ep_step = env.step(action), ep_step + 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = with_fused(dict(layer_norm=layer_norm.launches, attention=attention.launches,
-                                   mbconv_chain=mbconv_chain.launches), "reality")
+        launches = with_fused(dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
+                                   mbconv_chain=counted("K2.launches")), "reality")
         detected = [bool(s["inputs"][6].any()) for s in steps]
         xy, yaw = env.robot.xy_yaw
         log(f"[reality] FakeRobot(seed=0) -> ObjectNavEnv -> RealityITMPolicyV2 (v2, B=1, continuous PointNav at "
@@ -3020,9 +3028,10 @@ def phase_reality(engine: PerceptionEngine, det, sam, zoe: ZoeDepth, smi: str) -
             ep["obs"] = env.step(ep["action"])
 
         seen, timed = [], StepTimer()
-        before = (layer_norm.launches, mbconv_chain.launches, attention.launches)
+        before = (counted("K1.launches"), counted("K2.launches"), counted("K3.launches"))
         act()  # a warm-up, and one act's launches
-        per_act = [a - b for a, b in zip((layer_norm.launches, mbconv_chain.launches, attention.launches), before)]
+        per_act = [a - b for a, b in zip((counted("K1.launches"), counted("K2.launches"), counted("K3.launches")),
+                                         before)]
         step_env()
         for _ in range(REALITY_TIMED):
             with timed.section(label):
@@ -3078,7 +3087,7 @@ def phase_tiny_vitdet() -> None:
     for name, scfg in (("SamConfig.tiny()", SamConfig.tiny()), ("tiny_sam_config()", tiny_sam_config())):
         cpu = SAM.init_random(scfg, seed=0, device="cpu")
         gpu = SAM(cpu.cfg, copy.deepcopy(cpu.module).to(DEV))
-        k1, k2, k3 = layer_norm.launches, mbconv_chain.launches, attention.launches
+        k1, k2, k3 = counted("K1.launches"), counted("K2.launches"), counted("K3.launches")
         emb_c, emb_g = cpu.encode(imgs), gpu.encode(imgs.to(DEV)).cpu()
         with torch.no_grad():
             lc, ic = cpu.module.decode_boxes(emb_c, boxes)
@@ -3097,7 +3106,7 @@ def phase_tiny_vitdet() -> None:
             sel = torch.take_along_dim(far, best[..., None, None, None], dim=2)[:, :, 0]
             flips.append(float((mg.cpu() != mc)[sel].float().mean()))
             check(torch.equal(gated.cpu()[has], mg.cpu()[has]), f"tiny ViT-det {name}: gated differs from ungated")
-        launched = (layer_norm.launches - k1, mbconv_chain.launches - k2, attention.launches - k3)
+        launched = (counted("K1.launches") - k1, counted("K2.launches") - k2, counted("K3.launches") - k3)
         log(f"[tiny-vitdet] {name}: card vs CPU embeddings {emb_err:.2e} of the largest entry, mask logits "
             f"{logit_err:.2e}, iou {iou_err:.2e} (tol {TINY_VITDET_RTOL}); masks away from 0 flip {flips} "
             f"(multimask off, on; tol 0); gated equals ungated on the card; K1, K2, K3 launches {launched}")
@@ -3143,12 +3152,12 @@ def phase_vitdet(det_cfg, det, rgb, smi: str) -> dict:
     # Phase 11's pipeline with ViT-det in place of MobileSAM: both routes
     # for the COCO target, then the open-vocabulary route at threshold 0
     # (every frame holds a detection), gated at capacity 2.
-    add_layer_norm.launches = layer_norm.launches = mbconv_chain.launches = attention.launches = 0
+    reset_counters()
     out_coco = make_pipeline(det, sam, det_cfg, cap)(rgb, COCO_TARGET)
     out_open = make_pipeline(det, sam, det_cfg, cap, non_coco_threshold=0.0)(rgb, OPEN_TARGET)
     torch.cuda.synchronize()
-    launches = dict(layer_norm=layer_norm.launches, mbconv_chain=mbconv_chain.launches,
-                    attention=attention.launches)
+    launches = dict(layer_norm=counted("K1.launches"), mbconv_chain=counted("K2.launches"),
+                    attention=counted("K3.launches"))
     frames_coco = check_detections(COCO_TARGET, out_coco, b, h, w, k)
     frames_open = check_detections(OPEN_TARGET, out_open, b, h, w, k)
     log(f"[vitdet] phase 11's pipeline with ViT-det SAM: {COCO_TARGET} {int(out_coco[1].sum())} detections on "
@@ -3255,13 +3264,13 @@ def phase_semexp(engine: PerceptionEngine, det, sam, pointnav, smi: str) -> dict
     envs = FakeSemExpVecEnv(lambda i: FakeObjectNavEnv(two_room_plan(seed=i), EnvConfig(max_steps=SEMEXP_STEPS)), 1,
                             goal_name=HABITAT_TARGET)
     with tempfile.TemporaryDirectory() as tmp:
-        add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         results = evaluate_semexp(envs, agent, 1, max_episode_length=SEMEXP_STEPS + 1, log_dir=tmp, print_fn=log)
         wall = time.perf_counter() - t0
         logged = sorted(os.listdir(tmp))
-    launches = with_fused(dict(layer_norm=layer_norm.launches, attention=attention.launches,
-                               mbconv_chain=mbconv_chain.launches), "semexp")
+    launches = with_fused(dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
+                               mbconv_chain=counted("K2.launches")), "semexp")
     check(len(results) == 1 and len(logged) == 1, "evaluate_semexp lost its episode or its log")
     r = results[0]
     check(all(math.isfinite(r[key]) for key in ("success", "spl", "distance_to_goal")), "SemExp metrics finite")
@@ -3360,10 +3369,10 @@ def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: to
         check(converted.sam.cfg == scfg and state_dicts_equal(converted.sam.module, want.module),
               "the converted MobileSAM differs from the converter's tree loaded and cast on the card")
         pipe = make_pipeline(det, converted.sam, cfg, SAM_CAPACITY)
-        mbconv_chain.launches = 0
+        reset_counters()
         masks, valid, _ = pipe(rgb, COCO_TARGET)
         torch.cuda.synchronize()
-        k2 = mbconv_chain.launches
+        k2 = counted("K2.launches")
         check(k2 > 0 and masks.shape[:2] == valid.shape and bool(valid.any()),
               "the converted MobileSAM segmented nothing or launched no K2")
         log(f"[bundle] a full-width mobile_sam.pt ({len(ckpt)} tensors, "
@@ -3394,12 +3403,12 @@ def phase_bundle(engine: PerceptionEngine, det, sam, spec, record: list, rgb: to
                 v[...] = r["inputs"][name]
             outs = []
             for i, (_, fused) in enumerate(stacks):
-                add_layer_norm.launches = layer_norm.launches = attention.launches = mbconv_chain.launches = 0
+                reset_counters()
                 out, states[i] = fused(states[i], None, buf)
                 outs.append(out.cpu())
                 if i == 0:
-                    counts.append((layer_norm.launches, mbconv_chain.launches, attention.launches))
-                    k1_fused.append(add_layer_norm.launches)
+                    counts.append((counted("K1.launches"), counted("K2.launches"), counted("K3.launches")))
+                    k1_fused.append(counted("K1.fused_launches"))
             check(torch.equal(outs[0], outs[1]), f"bundle-served dispatch {k}: outputs differ from the in-memory "
                   f"stack's ({(outs[0] != outs[1]).sum().item()} values)")
         flat = [[t for f in s_ for t in (f if isinstance(f, tuple) else (f,))] for s_ in states]
@@ -3534,11 +3543,10 @@ def phase_tensor_parallel(engine: PerceptionEngine, det, spec, oracle: dict, rgb
 
     counts, handles = split_calls(rows)
     torch.cuda.synchronize()
-    add_layer_norm.launches = layer_norm.launches = 0
-    attention.launches = 0
+    reset_counters()
     split_score()
     torch.cuda.synchronize()
-    launches = dict(layer_norm=layer_norm.launches, attention=attention.launches)
+    launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
     for h in handles:
         h.remove()
     log(f"[tp] Dense calls per row in the split image call: {counts} (expect {TP_DENSE_IMAGE} split, all with "

@@ -46,10 +46,7 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke as S  # noqa: E402
-from vlfm_tpu_torch.ops.attention import attention  # noqa: E402
-from vlfm_tpu_torch.ops.conv_fused import mbconv_chain  # noqa: E402
-from vlfm_tpu_torch.ops.deform_gather import deform_gather  # noqa: E402
-from vlfm_tpu_torch.ops.norms import layer_norm  # noqa: E402
+from vlfm_tpu_torch.utils.profiling import counters, reset_counters  # noqa: E402
 
 LN_KERNEL = "layer_norm_kernel<"  # csrc/layer_norm.cu's kernel template
 K3_KERNELS = ("attention_whole<", "attention_stream<", "attention_f32<")  # csrc/attention*.cu's three bodies
@@ -103,14 +100,14 @@ def gdino_breakdown(smi: str, tables: list) -> None:
     for label, fn in ((f"GroundingDINO detect B={rgb.shape[0]}", lambda: adapter.detect(imgs, ids, mask)),
                       (f"pipeline call B={rgb.shape[0]} ({S.OPEN_TARGET}, GroundingDINO, gated SAM)",
                        lambda: pipe(rgb, S.OPEN_TARGET))):
-        k40 = deform_gather.launches
+        reset_counters()
         prof, dev, wall = profile_calls(fn, calls, warmup=2)
         dev_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3 / calls
         k4 = [e for e in dev if S.K4_KERNEL in e.name]
         k4_ms = sum(e.time_range.elapsed_us() for e in k4) / 1e3 / calls
         print(f"[gdino-profile] {label}, {calls} calls on {smi}: {wall:.2f} ms wall and {dev_ms:.2f} ms of "
               f"device time per call; K4 {len(k4) // calls} launches per call "
-              f"({(deform_gather.launches - k40) // (calls + 2)} by the wrapper's count), {k4_ms:.3f} ms, "
+              f"({counters().get('K4.launches', 0) // (calls + 2)} by the wrapper's count), {k4_ms:.3f} ms, "
               f"{k4_ms / max(dev_ms, 1e-9):.3f} of the device time")
         print("  by ATen op:")
         for name, ms, n in op_table(prof, calls, top=14):
@@ -155,7 +152,7 @@ def main() -> None:
     for _ in range(3):
         itm.cosine_cached_text(imgs, feats)
     torch.cuda.synchronize()
-    ln0, k30 = layer_norm.launches, attention.launches
+    reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             itm.cosine_cached_text(imgs, feats)
@@ -165,8 +162,9 @@ def main() -> None:
     print(f"[itm-profile] B=32, {calls} calls on {smi}: {dev_ms:.2f} ms of device time per call")
     for name, ms, n in op_table(prof, calls, top=12):
         print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
-    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), layer_norm.launches - ln0),
-                                  ("attention kernel (K3)", K3_KERNELS, attention.launches - k30)):
+    launched = counters()
+    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), launched.get("K1.launches", 0)),
+                                  ("attention kernel (K3)", K3_KERNELS, launched.get("K3.launches", 0))):
         ks = [e for e in dev if any(n in e.name for n in names)]
         ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls
         n = len(ks) // calls
@@ -212,7 +210,7 @@ def main() -> None:
         out = pipe(rgb, S.COCO_TARGET)
     torch.cuda.synchronize()
     passes = -(-int(out[1].any(dim=1).sum()) // det_cfg.sam_frame_capacity)
-    ln0, k20 = layer_norm.launches, mbconv_chain.launches
+    reset_counters()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
@@ -227,8 +225,9 @@ def main() -> None:
     )
     for name, ms, n in op_table(prof, calls, top=14):
         print(f"  {name:32s} {ms:8.3f} ms  {n:5d} launches per call")
-    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), layer_norm.launches - ln0),
-                                  ("MBConv chain kernel (K2)", K2_KERNELS, mbconv_chain.launches - k20)):
+    launched = counters()
+    for label, names, wrapper in (("LayerNorm kernel (K1)", (LN_KERNEL,), launched.get("K1.launches", 0)),
+                                  ("MBConv chain kernel (K2)", K2_KERNELS, launched.get("K2.launches", 0))):
         ks = [e for e in dev if any(n in e.name for n in names)]
         ms = sum(e.time_range.elapsed_us() for e in ks) / 1e3 / calls
         print(f"  {label}: {len(ks) // calls} launches per call ({wrapper // calls} by the wrapper's count), "

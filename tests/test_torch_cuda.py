@@ -36,6 +36,7 @@ from vlfm_tpu_torch.runner import sim_farm as SF
 from vlfm_tpu_torch.runner.episode_driver import step_inputs
 from vlfm_tpu_torch.runner.full_stack import FullStackPerception
 from vlfm_tpu_torch.utils.geometry import xyz_yaw_to_tf_matrix
+from vlfm_tpu_torch.utils.profiling import counters, reset_counters
 
 pytestmark = pytest.mark.cuda
 
@@ -45,6 +46,11 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
     return torch.device("cuda", 0)
+
+
+def counted(name):
+    """The counter ``name`` since the last ``reset_counters()``."""
+    return counters().get(name, 0)
 
 
 def _ln_inputs(rows, d, dtype, dev):
@@ -65,10 +71,10 @@ def _ln_inputs(rows, d, dtype, dev):
 ])
 def test_layer_norm_kernel_matches_plain(dev, rows, d, dtype, eps):
     x, scale, bias = _ln_inputs(rows, d, dtype, dev)
-    before = layer_norm.launches
+    reset_counters()
     got = layer_norm(x, scale, bias, eps)
     torch.cuda.synchronize()
-    assert layer_norm.launches == before + 1
+    assert counted("K1.launches") == 1
     assert got.dtype == dtype and got.shape == x.shape
     want = layer_norm_ref(x, scale, bias, eps)
     if dtype == torch.float32:
@@ -90,7 +96,7 @@ def test_layer_norm_kernel_takes_leading_shapes_and_offsets(dev):
 
 def test_layer_norm_wrapper_raises_instead_of_falling_back(dev):
     x, scale, bias = _ln_inputs(8, 64, torch.bfloat16, dev)
-    before = layer_norm.launches
+    reset_counters()
     with pytest.raises(ValueError, match="contiguous"):
         layer_norm(x.t(), scale[:8], bias[:8])
     with pytest.raises(TypeError, match="float32"):
@@ -102,7 +108,7 @@ def test_layer_norm_wrapper_raises_instead_of_falling_back(dev):
         layer_norm(big, torch.ones(4096, device=dev), torch.zeros(4096, device=dev))
     with pytest.raises(ValueError, match="is on cpu"):
         layer_norm(x, scale.cpu(), bias)
-    assert layer_norm.launches == before
+    assert counted("K1.launches") == 0
 
 
 @pytest.mark.parametrize("rows,d,h_rows,dtype,eps,keep_sum", [
@@ -119,11 +125,11 @@ def test_layer_norm_wrapper_raises_instead_of_falling_back(dev):
 def test_add_layer_norm_kernel_matches_plain(dev, rows, d, h_rows, dtype, eps, keep_sum):
     x, scale, bias = _ln_inputs(rows, d, dtype, dev)
     h = _ln_inputs(h_rows, d, dtype, dev)[0] * 3 + 1
-    before = (layer_norm.launches, add_layer_norm.launches)
+    reset_counters()
     x = x.reshape(-1, h_rows, d)  # h: one table for every group of h_rows rows
     got = add_layer_norm(x, h, scale, bias, eps, keep_sum=keep_sum)
     torch.cuda.synchronize()
-    assert (layer_norm.launches, add_layer_norm.launches) == (before[0] + 1, before[1] + 1)
+    assert (counted("K1.launches"), counted("K1.fused_launches")) == (1, 1)
     s, y = got if keep_sum else (None, got)
     s_want = x + h
     y_want = layer_norm_ref(s_want, scale, bias, eps)
@@ -140,7 +146,7 @@ def test_add_layer_norm_kernel_matches_plain(dev, rows, d, h_rows, dtype, eps, k
 
 def test_add_layer_norm_wrapper_raises_instead_of_falling_back(dev):
     x, scale, bias = _ln_inputs(8, 64, torch.bfloat16, dev)
-    before = (layer_norm.launches, add_layer_norm.launches)
+    reset_counters()
     with pytest.raises(ValueError, match="contiguous"):
         add_layer_norm(x.t().contiguous().t(), x, scale, bias, keep_sum=True)
     with pytest.raises(ValueError, match="contiguous h"):
@@ -156,7 +162,7 @@ def test_add_layer_norm_wrapper_raises_instead_of_falling_back(dev):
         add_layer_norm(x.reshape(2, 4, 64), x[:2].reshape(2, 1, 64), scale, bias, keep_sum=True)
     with pytest.raises(ValueError, match="h is on cpu"):
         add_layer_norm(x, x.cpu(), scale, bias, keep_sum=True)
-    assert (layer_norm.launches, add_layer_norm.launches) == before
+    assert (counted("K1.launches"), counted("K1.fused_launches")) == (0, 0)
 
 
 def test_tiny_blip2_card_matches_cpu_and_counts_launches(dev):
@@ -168,12 +174,12 @@ def test_tiny_blip2_card_matches_cpu_and_counts_launches(dev):
     ids = torch.from_numpy(rng.integers(4, 56, (2, 16)).astype(np.int64))
     mask = torch.ones(2, 16, dtype=torch.bool)
     feats = gpu.encode_texts(ids.to(dev), mask.to(dev))
-    before, attn_before = layer_norm.launches, A.attention.launches
+    reset_counters()
     got = gpu.cosine_cached_text(imgs.to(dev), feats)
     torch.cuda.synchronize()
     # ViT 2 x 2 + post_ln, Q-Former embed_ln + 2 x 2 + 1 cross_ln.
-    assert layer_norm.launches - before == 5 + 6
-    assert A.attention.launches - attn_before == 2  # one K3 launch per ViT block
+    assert counted("K1.launches") == 5 + 6
+    assert counted("K3.launches") == 2  # one K3 launch per ViT block
     want = cpu.cosine(imgs, ids, mask)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
 
@@ -208,13 +214,13 @@ def test_tiny_itm_split_over_a_model_axis_on_the_card_matches_unsplit(dev):
     imgs = torch.from_numpy(rng.uniform(0, 1, (4, 56, 56, 3)).astype(np.float32)).to(dev)
     ids = torch.from_numpy(rng.integers(4, 56, (2, 16)).astype(np.int64)).to(dev)
     mask = torch.ones(2, 16, dtype=torch.bool, device=dev)
-    before, attn_before = layer_norm.launches, A.attention.launches
+    reset_counters()
     got = torch.cat([BLIP2ITM(cfg, row).cosine(blk, ids, mask)
                      for row, blk in zip(rows, MESH.shard_episode_batch(imgs, mesh))])
     torch.cuda.synchronize()
     # Per row: the image call's 11 K1 launches and the text call's 5; K3 once per ViT block.
-    assert layer_norm.launches - before == 2 * (11 + 5)
-    assert A.attention.launches - attn_before == 2 * 2
+    assert counted("K1.launches") == 2 * (11 + 5)
+    assert counted("K3.launches") == 2 * 2
     torch.testing.assert_close(got, gpu.cosine(imgs, ids, mask), atol=1e-5, rtol=0)
 
 
@@ -253,10 +259,10 @@ def chain_inputs(shape, ch, cout, dtype, dev, seed=0):
 def _check_chain(x, w, residual, body):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    before = mbconv_chain.launches
+    reset_counters()
     got = mbconv_chain(x, *w, residual=residual, final_gelu=residual)
     torch.cuda.synchronize()
-    assert mbconv_chain.launches == before + 1
+    assert counted("K2.launches") == 1
     assert chain_plan(x, w[0], w[1], w[2], w[3], w[4], got).body == body
     want = mbconv_chain_ref(x, *w, residual=residual, final_gelu=residual)
     assert got.dtype == x.dtype and got.shape == want.shape == (*x.shape[:3], w[4].shape[1])
@@ -316,7 +322,7 @@ def test_mbconv_chain_unaligned_pointer_takes_simt(dev, which):
 
 def test_mbconv_chain_wrapper_raises_instead_of_falling_back(dev):
     x, w = chain_inputs((1, 8, 8, 16), 32, 16, torch.bfloat16, dev)
-    before = mbconv_chain.launches
+    reset_counters()
     with pytest.raises(ValueError, match="contiguous"):
         mbconv_chain(x.transpose(1, 2), *w)
     with pytest.raises(TypeError, match="float32 b1"):
@@ -328,7 +334,7 @@ def test_mbconv_chain_wrapper_raises_instead_of_falling_back(dev):
         mbconv_chain(x2, *w2, residual=True)
     with pytest.raises(ValueError, match="is on cpu"):
         mbconv_chain(x, w[0].cpu(), *w[1:])
-    assert mbconv_chain.launches == before
+    assert counted("K2.launches") == 0
 
 
 def test_tiny_sam_card_matches_cpu_and_counts_launches(dev):
@@ -341,11 +347,11 @@ def test_tiny_sam_card_matches_cpu_and_counts_launches(dev):
     rng = np.random.default_rng(0)
     imgs = torch.from_numpy(rng.uniform(0, 255, (3, 64, 64, 3)).astype(np.float32))
     boxes = torch.tensor([[[0.1, 0.1, 0.6, 0.7], [0.3, 0.2, 0.9, 0.9]]] * 3)
-    before = mbconv_chain.launches
+    reset_counters()
     with torch.no_grad():
         got, got_iou = gpu.module(imgs.to(dev), boxes.to(dev))
     torch.cuda.synchronize()
-    assert mbconv_chain.launches - before == 2  # stage-0 MBConv + the stride-1 merge
+    assert counted("K2.launches") == 2  # stage-0 MBConv + the stride-1 merge
     with torch.no_grad():
         want, want_iou = cpu.module(imgs, boxes)
     torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
@@ -395,10 +401,10 @@ def _check_attention(q, k, v, kw, body=None):
     """One launch, against the plain version under its tolerance; with
     ``body``, the plan's description of the kernel body too."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    before = A.attention.launches
+    reset_counters()
     got = A.attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert A.attention.launches == before + 1
+    assert counted("K3.launches") == 1
     if body is not None:
         assert A.attention_plan(q, k, v, got).describe() == body
     want = A.attention_ref(q, k, v, **kw)
@@ -455,9 +461,9 @@ def test_fused_qkv_attention_on_the_card_matches_cpu_and_merges_by_view(dev):
     cpu = FusedQKVAttention(96, 4, device="cpu")
     gpu = copy.deepcopy(cpu).to(dev)
     x = torch.randn(2, 33, 96)
-    before = A.attention.launches
+    reset_counters()
     got = gpu(x.to(dev))
-    assert A.attention.launches == before + 1
+    assert counted("K3.launches") == 1
     torch.testing.assert_close(got.cpu(), cpu(x), atol=1e-5, rtol=0)
     q, k, v = A.qkv_views(gpu.qkv(x.to(dev)), 4)
     out = A.attention(q, k, v)
@@ -477,7 +483,7 @@ def test_attention_on_the_card_never_takes_the_plain_version(dev, monkeypatch):
 
 def test_attention_wrapper_raises_instead_of_falling_back(dev):
     q, k, v = _attn_inputs((1, 2, 40, 24), torch.bfloat16, dev)
-    before = A.attention.launches
+    reset_counters()
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         A.attention(q.half(), k.half(), v.half())
     with pytest.raises(TypeError, match="k is"):
@@ -491,7 +497,7 @@ def test_attention_wrapper_raises_instead_of_falling_back(dev):
         A.attention(q, k[:, :1], v)
     with pytest.raises(ValueError, match="normalize"):
         A.attention(q, k, v, normalize="rows")
-    assert A.attention.launches == before
+    assert counted("K3.launches") == 0
 
 
 def test_obstacle_map_card_matches_cpu(dev):
@@ -565,10 +571,10 @@ def test_deform_gather_kernel_matches_plain(dev, b, q, nh, dh, shapes, npts, vdt
     value, grids, weights = _deform_inputs(b, q, nh, dh, shapes, npts, vdtype, wdtype, dev, far=far,
                                            value_offset=value_offset, grids_offset=grids_offset)
     assert value.is_contiguous() and value.data_ptr() % 16 == (value_offset * value.element_size()) % 16
-    before = DG.deform_gather.launches
+    reset_counters()
     got = DG.deform_gather(value, shapes, grids, weights)
     torch.cuda.synchronize()
-    assert DG.deform_gather.launches == before + 1
+    assert counted("K4.launches") == 1
     want = DG.deform_gather_ref(value, shapes, grids, weights)
     assert got.dtype == torch.float32 and got.shape == want.shape == (b, q, nh, dh)
     err = float((got - want).abs().max())
@@ -616,7 +622,7 @@ def test_deform_gather_on_the_card_never_takes_the_plain_version(dev, monkeypatc
 def test_deform_gather_wrapper_raises_instead_of_falling_back(dev):
     shapes = ((4, 4), (2, 2))
     value, grids, weights = _deform_inputs(1, 6, 2, 8, shapes, 2, torch.float32, torch.float32, dev)
-    before = DG.deform_gather.launches
+    reset_counters()
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         DG.deform_gather(value.half(), shapes, grids, weights)
     with pytest.raises(TypeError, match="float32 grids"):
@@ -631,7 +637,7 @@ def test_deform_gather_wrapper_raises_instead_of_falling_back(dev):
         DG.deform_gather(value, shapes[:1], grids, weights)
     with pytest.raises(ValueError, match="do not match"):
         DG.deform_gather(value, shapes, grids, weights[:, :3])
-    assert DG.deform_gather.launches == before
+    assert counted("K4.launches") == 0
 
 
 def test_tiny_grounding_dino_card_matches_cpu_and_counts_launches(dev):
@@ -643,10 +649,10 @@ def test_tiny_grounding_dino_card_matches_cpu_and_counts_launches(dev):
     gpu = GD.GroundingDinoDetector(cpu.cfg, copy.deepcopy(cpu.module).to(dev))
     imgs = torch.from_numpy(np.random.default_rng(0).normal(size=(3, 64, 64, 3)).astype(np.float32))
     ids, mask, _ = GD.build_caption_ids([np.array([5, 6]), np.array([7])], 16)
-    before = DG.deform_gather.launches
+    reset_counters()
     got_logits, got_boxes = gpu.predict(imgs.to(dev), ids, mask)
     torch.cuda.synchronize()
-    assert DG.deform_gather.launches - before == GD.deformable_attentions(cpu.cfg) == 4
+    assert counted("K4.launches") == GD.deformable_attentions(cpu.cfg) == 4
     want_logits, want_boxes = cpu.predict(imgs, ids, mask)
     finite = torch.isfinite(want_logits)
     assert torch.equal(torch.isfinite(got_logits.cpu()), finite)
@@ -1007,3 +1013,77 @@ def test_tiny_vitdet_sam_card_matches_cpu(dev, multimask):
     sel = torch.take_along_dim(lc, best[..., None, None, None], dim=2)[:, :, 0]
     far = sel.abs() > 1e-3 * float(lc.abs().max())
     assert torch.equal(mg.cpu()[far], mc[far])
+
+
+@pytest.mark.parametrize("use_vqa", [False, True], ids=["dispatch", "with-veto"])
+def test_every_sync_of_a_dispatch_lies_in_a_wait_span(dev, use_vqa):
+    """A tiny packed fused dispatch on the card (2 lanes, SAM gated at one
+    frame a pass; with the veto, tiny BLIP2VQA gated at 2 slots) under
+    ``set_sync_debug_mode("warn")`` with the program's tracing on: every
+    synchronising call inside ``vlfm.dispatch`` falls inside a
+    ``vlfm.wait.*`` span, and there is one per wait span."""
+    import time
+    import traceback
+    import warnings
+
+    from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
+    from vlfm_tpu_torch.utils import profiling as P
+
+    h, w = 48, 64
+    cfg = TCONFIG.VLFMConfig(camera=TCONFIG.CameraConfig(height=h, width=w), max_frontiers=16,
+                             max_frontier_cells=256, object_map_slots=8, object_map_points_per_slot=128,
+                             max_detections_per_frame=4, sam_frame_capacity=1, use_vqa=use_vqa, vqa_slot_capacity=2)
+    spec = GridSpec2D(512, 20, 160)
+    layout = PK.build_layout([("depth", "float32", (2, h, w)), ("rgb", "uint8", (2, h, w, 3)),
+                              ("heading", "float32", (2,)), ("xy", "float32", (2, 2)), ("seeds", "int32", (2,)),
+                              ("steps", "int32", (2,)), ("reset", "uint8", (2,))])
+    vqa = BLIP2VQA.init_random(BLIP2VQAConfig.tiny(), seed=0, device=dev) if use_vqa else None
+    stack = FullStackPerception(cfg, blip2_vqa=vqa, device=dev)
+    step = stack.make_fused_step("greedy", spec, cfg, "toilet", layout=layout)
+    state = ITM.create_state(spec, cfg, batch=2, device=dev)
+    env = ENV.FakeObjectNavEnv(ENV.open_room_plan(seed=0), ENV.EnvConfig(width=w, height=h))
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = PK.pack_views(buf.numpy(), layout)
+    obs = env.reset()
+    for j in range(2):
+        views["depth"][j], views["rgb"][j] = obs["depth"], obs["rgb"]
+        views["heading"][j], views["xy"][j] = obs["heading"], obs["robot_xy"]
+    views["seeds"][:], views["steps"][:], views["reset"][:] = (0, 1), (0, 0), (0, 0)
+    out, state = step(state, None, buf)  # first use: kernels loaded, texts encoded
+    out.cpu()
+    syncs = []
+
+    def show(message, *args, **kwargs):
+        if "synchronizing CUDA operation" in str(message):
+            site = [f"{f.filename.rpartition('/')[2]}:{f.lineno}" for f in traceback.extract_stack()
+                    if "vlfm_tpu_torch" in f.filename][-2:]
+            syncs.append((time.time_ns(), " < ".join(site)))
+
+    P.reset_spans()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = show
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with P.tracing():
+                for k in range(2):
+                    views["steps"][:] = k + 1
+                    out, state = step(state, None, buf)
+                    out.cpu()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    recs = P.spans()
+    roots = [r for r in recs if r.name == "vlfm.dispatch"]
+    assert len(roots) == 2
+
+    def within(t, spans):
+        return any(s.start_ns <= t <= s.end_ns for s in spans)
+
+    waits = [r for r in recs if r.name.startswith("vlfm.wait.") and within(r.start_ns, roots)]
+    inside = [(t, site) for t, site in syncs if within(t, roots)]
+    assert inside, "no sync inside the dispatch"
+    assert [site for t, site in inside if not within(t, waits)] == []
+    assert len(inside) == len(waits)
+    assert {r.name for r in waits} >= {"vlfm.wait.sam_gate", "vlfm.wait.flood"}
+    if use_vqa:
+        assert "vlfm.veto" in {r.name for r in recs}

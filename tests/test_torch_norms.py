@@ -27,6 +27,7 @@ from vlfm_tpu_torch.models import owl_vit as TO
 from vlfm_tpu_torch.models.layers import FastLayerNorm, LayerNormF32
 from vlfm_tpu_torch.models.params import port_layout
 from vlfm_tpu_torch.ops.norms import add_layer_norm, add_layer_norm_ref, layer_norm, layer_norm_ref
+from vlfm_tpu_torch.utils.profiling import counters, reset_counters
 
 
 def _inputs(shape, seed):
@@ -82,19 +83,24 @@ def test_fast_layer_norm_is_drop_in_for_nn_layer_norm():
     assert set(LayerNormF32(48).state_dict()) == {"ln.weight", "ln.bias"}
 
 
+def _k1_launches():
+    """(K1.launches, K1.fused_launches) since the last reset."""
+    c = counters()
+    return c.get("K1.launches", 0), c.get("K1.fused_launches", 0)
+
+
 def test_cpu_tensor_takes_plain_version_without_counting():
     x, scale, bias = _inputs((5, 64), seed=5)
-    before = layer_norm.launches
+    reset_counters()
     got = layer_norm(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias))
     want = layer_norm_ref(torch.from_numpy(x), torch.from_numpy(scale), torch.from_numpy(bias))
     assert torch.equal(got, want)
-    assert layer_norm.launches == before
+    assert _k1_launches() == (0, 0)
     x, h, scale, bias = _add_inputs((5, 64), (5, 64), torch.bfloat16, seed=5)
-    before = (layer_norm.launches, add_layer_norm.launches)
     s, y = add_layer_norm(x, h, scale, bias, keep_sum=True)
     want_s, want_y = add_layer_norm_ref(x, h, scale, bias, keep_sum=True)
     assert torch.equal(s, want_s) and torch.equal(y, want_y)
-    assert (layer_norm.launches, add_layer_norm.launches) == before
+    assert _k1_launches() == (0, 0)
 
 
 def test_other_devices_raise():
@@ -129,7 +135,7 @@ def test_add_layer_norm_is_add_then_layer_norm_bit_for_bit(shape, h_shape, dtype
     x, h, scale, bias = _add_inputs(shape, h_shape, dtype, seed=sum(shape) + len(h_shape))
     s_want = x + h
     y_want = layer_norm_ref(s_want, scale, bias, eps)
-    before = (layer_norm.launches, add_layer_norm.launches)
+    reset_counters()
     for fn in (add_layer_norm_ref, add_layer_norm):  # the wrapper takes the plain version on the CPU
         got = fn(x, h, scale, bias, eps, keep_sum=keep_sum)
         s, y = got if keep_sum else (None, got)
@@ -137,7 +143,7 @@ def test_add_layer_norm_is_add_then_layer_norm_bit_for_bit(shape, h_shape, dtype
         assert torch.equal(y, y_want)
         if keep_sum:
             assert s.dtype == dtype and torch.equal(s, s_want)
-    assert (layer_norm.launches, add_layer_norm.launches) == before
+    assert _k1_launches() == (0, 0)
 
 
 def test_add_layer_norm_raises_on_mismatched_dtype_or_shape():

@@ -28,6 +28,7 @@ from vlfm_tpu_torch.models.params import init_random_, load_jax_params_, state_d
 from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig, TextEmbeddings
 from vlfm_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from vlfm_tpu_torch.ops.resize import resize_matmul
+from vlfm_tpu_torch.utils.profiling import span
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -65,17 +66,23 @@ class BLIP2ITMModule(nn.Module):
         self.text_proj = Dense(q.hidden, cfg.embed_dim, device=device)
 
     def image_feats(self, images: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) in [0, 1] -> (B, Q, E) normalized query features."""
+        """(B, H, W, 3) in [0, 1] -> (B, Q, E) normalized query features:
+        a ``vlfm.itm.vision`` span (normalisation and ViT), then a
+        ``vlfm.itm.qformer`` span (the Q-Former and the projection)."""
         c = self.cfg
-        mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
-        x = ((images - mean) / std).to(c.compute_dtype)
-        embeds = self.vision(x)
-        b = embeds.shape[0]
-        queries = self.query_tokens.to(c.compute_dtype).repeat(b, 1, 1)
-        out = self.qformer(queries, image_embeds=embeds, is_query=True)
-        feats = self.vision_proj(out.to(torch.float32))
-        return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
+        with span("vlfm.itm.vision"):
+            with span("vlfm.wait.itm_norm"):
+                mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
+            with span("vlfm.wait.itm_norm"):
+                std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
+            x = ((images - mean) / std).to(c.compute_dtype)
+            embeds = self.vision(x)
+        with span("vlfm.itm.qformer"):
+            b = embeds.shape[0]
+            queries = self.query_tokens.to(c.compute_dtype).repeat(b, 1, 1)
+            out = self.qformer(queries, image_embeds=embeds, is_query=True)
+            feats = self.vision_proj(out.to(torch.float32))
+            return feats / torch.linalg.vector_norm(feats, dim=-1, keepdim=True)
 
     def text_feats(self, input_ids: torch.Tensor, attention_mask: torch.Tensor) -> torch.Tensor:
         """(T, L) int ids -> (T, E) normalized CLS features."""
@@ -139,10 +146,12 @@ class BLIP2ITM:
         return cosine_from_feats(self.module.image_feats(images), text_feats)
 
     def preprocess(self, rgb_uint8: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) uint8 -> resized float [0, 1] at model resolution."""
+        """(B, H, W, 3) uint8 -> resized float [0, 1] at model resolution
+        (in a ``vlfm.itm.vision`` span)."""
         s = self.cfg.vit.image_size
-        x = rgb_uint8.to(torch.float32) / 255.0
-        return resize_matmul(x, s, s, "cubic")
+        with span("vlfm.itm.vision"):
+            x = rgb_uint8.to(torch.float32) / 255.0
+            return resize_matmul(x, s, s, "cubic")
 
 
 # ---------------------------------------------------------------------------

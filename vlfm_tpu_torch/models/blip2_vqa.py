@@ -33,6 +33,7 @@ from vlfm_tpu_torch.models.qformer import QFormer, QFormerConfig
 from vlfm_tpu_torch.models.t5_vqa import T5Config, T5VQA, convert_hf_t5
 from vlfm_tpu_torch.models.vit import ViTConfig, ViTEncoder
 from vlfm_tpu_torch.ops.resize import resize_matmul
+from vlfm_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -75,8 +76,10 @@ class BLIP2VisualPrefixModule(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         c = self.cfg
-        mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.vqa_norm"):
+            mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.vqa_norm"):
+            std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
         x = ((images - mean) / std).to(c.compute_dtype)
         embeds = self.vision(x)
         queries = self.query_tokens.to(c.compute_dtype).repeat(embeds.shape[0], 1, 1)

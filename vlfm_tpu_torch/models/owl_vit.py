@@ -33,6 +33,7 @@ from vlfm_tpu_torch.models.hf_convert import dense, kernel, leaf, norm
 from vlfm_tpu_torch.models.layers import Dense, FastLayerNorm
 from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.ops.resize import resize_bilinear
+from vlfm_tpu_torch.utils.profiling import span
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
@@ -224,8 +225,10 @@ class OwlViTDetectionModule(nn.Module):
 
     def image_feats(self, images: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) in [0, 1] -> (B, P, D) merged patch features."""
-        mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.owl_norm"):
+            mean = torch.tensor(CLIP_MEAN, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.owl_norm"):
+            std = torch.tensor(CLIP_STD, dtype=images.dtype, device=images.device)
         h = self.post_ln(*self.vision(((images - mean) / std).to(self.cfg.compute_dtype)))
         return self.merge_ln(h[:, 1:] * h[:, :1])
 

@@ -47,6 +47,7 @@ from vlfm_tpu_torch.models.precision import exact_f32
 from vlfm_tpu_torch.models.tinyvit import (
     TinyViT, TinyViTConfig, conv_nhwc, convert_mobile_sam_encoder, expected_mobile_sam_keys)
 from vlfm_tpu_torch.ops.resize import resize_matmul
+from vlfm_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -471,8 +472,10 @@ class SamModule(nn.Module):
 
     def encode_image(self, images: torch.Tensor) -> torch.Tensor:
         """(B, S, S, 3) raw 0..255 floats -> (B, G, G, out_channels)."""
-        mean = torch.tensor(SAM_MEAN, dtype=images.dtype, device=images.device)
-        std = torch.tensor(SAM_STD, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.sam_norm"):
+            mean = torch.tensor(SAM_MEAN, dtype=images.dtype, device=images.device)
+        with span("vlfm.wait.sam_norm"):
+            std = torch.tensor(SAM_STD, dtype=images.dtype, device=images.device)
         return self.vision((images - mean) / std)
 
     def image_pe(self) -> torch.Tensor:
@@ -546,8 +549,13 @@ class SAM:
     def segment_boxes(self, images: torch.Tensor, boxes01: torch.Tensor, multimask_output: bool = False):
         """(B, S, S, 3) 0..255 floats + (B, NB, 4) boxes in [0, 1] -> bool
         masks (B, NB, 4G, 4G) at a quarter of the input resolution, and the
-        iou scores."""
-        return self.decode(self.encode(images), boxes01, multimask_output)
+        iou scores. One pass: a ``vlfm.sam`` span with its ``frames``, and
+        one more on the counters ``sam.passes`` and B on ``sam.frames``."""
+        frames = images.shape[0]
+        count("sam.passes")
+        count("sam.frames", frames)
+        with span("vlfm.sam", frames=frames):
+            return self.decode(self.encode(images), boxes01, multimask_output)
 
     @torch.inference_mode()
     def segment_boxes_gated(self, images: torch.Tensor, boxes01: torch.Tensor, frame_valid: torch.Tensor,
@@ -560,7 +568,8 @@ class SAM:
         to ``[0, B - capacity]``, as ``jax.lax.dynamic_slice_in_dim`` clamps
         it, so frames it takes again get the same masks written again. No
         detection is dropped. The number of passes needs one host read of
-        the detection-frame count per call.
+        the detection-frame count per call (a ``vlfm.wait.sam_gate`` span);
+        the count is added to the counter ``sam.detection_frames``.
 
         ``frame_valid``: (B, NB) bool. Returns (masks (B, NB, 4G, 4G) bool,
         frame_valid). Frames without detections that share a pass window may
@@ -571,7 +580,9 @@ class SAM:
             raise ValueError(f"capacity must be in [1, {b}], got {capacity}")
         has = frame_valid.any(dim=1)
         order = torch.argsort((~has).to(torch.uint8), stable=True)  # detection frames first
-        n_has = int(has.sum())
+        with span("vlfm.wait.sam_gate"):
+            n_has = int(has.sum())
+        count("sam.detection_frames", n_has)
         g4 = 4 * self.cfg.vision.grid
         masks = torch.zeros((b, nb, g4, g4), dtype=torch.bool, device=frame_valid.device)
         kw = {"multimask_output": True} if multimask_output else {}  # the two-argument call by default

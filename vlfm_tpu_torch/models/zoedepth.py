@@ -48,6 +48,7 @@ from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.precision import exact_f32
 from vlfm_tpu_torch.models.tinyvit import conv_nhwc
 from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
+from vlfm_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -648,13 +649,14 @@ class ZoeDepth:
         """(B, H, W, 3) uint8 -> (B, H, W) depth normalised to [0, 1] over
         (min_depth, max_depth), the mapping stack's convention: normalise,
         bring to the model's size (half-pixel bilinear), predict, bring back
-        to (H, W), clip."""
+        to (H, W), clip. The call is a ``vlfm.monodepth`` span."""
         s = self.cfg.beit.image_size
-        mean = torch.tensor(self.MEAN, device=rgb_uint8.device)
-        std = torch.tensor(self.STD, device=rgb_uint8.device)
-        x = resize_bilinear((rgb_uint8.to(torch.float32) / 255.0 - mean) / std, s, s)
-        metric = resize_bilinear_hw(self.predict(x), rgb_uint8.shape[1], rgb_uint8.shape[2])
-        return torch.clamp((metric - min_depth) / (max_depth - min_depth), 0.0, 1.0)
+        with span("vlfm.monodepth", frames=rgb_uint8.shape[0]):
+            mean = torch.tensor(self.MEAN, device=rgb_uint8.device)
+            std = torch.tensor(self.STD, device=rgb_uint8.device)
+            x = resize_bilinear((rgb_uint8.to(torch.float32) / 255.0 - mean) / std, s, s)
+            metric = resize_bilinear_hw(self.predict(x), rgb_uint8.shape[1], rgb_uint8.shape[2])
+            return torch.clamp((metric - min_depth) / (max_depth - min_depth), 0.0, 1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,8 @@ from typing import Optional
 
 import torch
 
+from vlfm_tpu_torch.utils.profiling import count, span
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
 NORMALIZE = ("probs", "output")
@@ -244,36 +246,35 @@ def attention(
 
     CPU tensors take ``attention_ref``. CUDA tensors launch the kernel on
     the current stream, into an output whose memory is (B, Lq, H, D);
-    ``attention.launches`` counts those launches.
+    the counter ``K3.launches`` counts those launches. Each call is a
+    ``vlfm.K3`` span with its shapes and dtype.
     """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, clamp=clamp, normalize=normalize, round_logits=round_logits)
-    if q.device.type != "cuda":
-        raise ValueError(f"attention runs on CPU or CUDA tensors, got {q.device}")
-    from vlfm_tpu_torch.kernels.build import load_library
+    with span("vlfm.K3", q=q, k=k):
+        if q.device.type == "cpu":
+            return attention_ref(q, k, v, clamp=clamp, normalize=normalize, round_logits=round_logits)
+        if q.device.type != "cuda":
+            raise ValueError(f"attention runs on CPU or CUDA tensors, got {q.device}")
+        from vlfm_tpu_torch.kernels.build import load_library
 
-    _check_cuda_args(q, k, v, normalize)
-    b, h, lq, d = q.shape
-    lk = k.shape[2]
-    out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
-    if out.numel() == 0:
+        _check_cuda_args(q, k, v, normalize)
+        b, h, lq, d = q.shape
+        lk = k.shape[2]
+        out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device).permute(0, 2, 1, 3)
+        if out.numel() == 0:
+            return out
+        if lk == 0:
+            raise ValueError("attention over zero keys")
+        lib = load_library()
+        plan = attention_plan(q, k, v, out)
+        strides = (ctypes.c_longlong * 16)(*(s for t in (q, k, v, out) for s in t.stride()))
+        err = lib.vlfm_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
+            b, h, lq, lk, d, 1.0 / math.sqrt(d), -1.0 if clamp is None else float(clamp),
+            int(clamp is None), int(normalize == "probs"), int(round_logits), plan.flags,
+            _DTYPE_CODES[q.dtype], _BODY_CODES[plan.body], plan.tiles_per_block, plan.smem_bytes,
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
+        count("K3.launches")
         return out
-    if lk == 0:
-        raise ValueError("attention over zero keys")
-    lib = load_library()
-    plan = attention_plan(q, k, v, out)
-    strides = (ctypes.c_longlong * 16)(*(s for t in (q, k, v, out) for s in t.stride()))
-    err = lib.vlfm_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), strides,
-        b, h, lq, lk, d, 1.0 / math.sqrt(d), -1.0 if clamp is None else float(clamp),
-        int(clamp is None), int(normalize == "probs"), int(round_logits), plan.flags,
-        _DTYPE_CODES[q.dtype], _BODY_CODES[plan.body], plan.tiles_per_block, plan.smem_bytes,
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"attention kernel launch failed: cudaError {err}")
-    attention.launches += 1
-    return out
-
-
-attention.launches = 0

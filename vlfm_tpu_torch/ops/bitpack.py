@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from vlfm_tpu_torch.utils.profiling import count, span
+
 WORD_MASK = 0xFFFFFFFF
 
 
@@ -104,9 +106,11 @@ def flood_packed(
         nxt = cur
         for _ in range(check_every):
             nxt = dilate8_packed(nxt) & mask_p
-        changed = bool((nxt != cur).any())
+        with span("vlfm.wait.flood"):
+            changed = bool((nxt != cur).any())
         cur = nxt
         i += check_every
+        count("map.sweeps", check_every)
         if not changed:
             break
     return cur

@@ -32,6 +32,8 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from vlfm_tpu_torch.utils.profiling import count, span
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The kernel's geometry (vlfm_tpu_torch/csrc/mbconv_chain.cu).
 _BODY_CODES = {"simt": 0, "tensor-core 16x16": 1, "tensor-core 4x16": 2}
@@ -191,33 +193,31 @@ def mbconv_chain(
     """x (B, H, W, Cin) -> (B, H, W, Cout), fused.
 
     CPU tensors take ``mbconv_chain_ref``. CUDA tensors launch the kernel on
-    the current stream; ``mbconv_chain.launches`` counts those launches.
+    the current stream; the counter ``K2.launches`` counts those launches.
+    Each call is a ``vlfm.K2`` span with its shapes and dtype.
     """
-    if x.device.type == "cpu":
-        return mbconv_chain_ref(x, w1, b1, w2, b2, w3, b3, residual=residual, final_gelu=final_gelu)
-    if x.device.type != "cuda":
-        raise ValueError(f"mbconv_chain runs on CPU or CUDA tensors, got {x.device}")
-    from vlfm_tpu_torch.kernels.build import load_library
+    with span("vlfm.K2", x=x, w1=w1, w3=w3):
+        if x.device.type == "cpu":
+            return mbconv_chain_ref(x, w1, b1, w2, b2, w3, b3, residual=residual, final_gelu=final_gelu)
+        if x.device.type != "cuda":
+            raise ValueError(f"mbconv_chain runs on CPU or CUDA tensors, got {x.device}")
+        from vlfm_tpu_torch.kernels.build import load_library
 
-    lib = load_library()
-    _check_cuda_args(x, w1, b1, w2, b2, w3, b3, residual)
-    b, h, w, cin = x.shape
-    ch, cout = w1.shape[1], w3.shape[1]
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    if out.numel() == 0:
+        lib = load_library()
+        _check_cuda_args(x, w1, b1, w2, b2, w3, b3, residual)
+        b, h, w, cin = x.shape
+        ch, cout = w1.shape[1], w3.shape[1]
+        out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+        if out.numel() == 0:
+            return out
+        plan = chain_plan(x, w1, b1, w2, b2, w3, out)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.vlfm_mbconv_chain(
+            *_args(x, w1, b1, w2, b2, w3, b3, out), b, h, w, cin, ch, cout,
+            int(residual), int(final_gelu), _DTYPE_CODES[x.dtype], _BODY_CODES[plan.body], plan.smem_bytes,
+            stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"mbconv_chain kernel launch failed: cudaError {err}")
+        count("K2.launches")
         return out
-    plan = chain_plan(x, w1, b1, w2, b2, w3, out)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.vlfm_mbconv_chain(
-        *_args(x, w1, b1, w2, b2, w3, b3, out), b, h, w, cin, ch, cout,
-        int(residual), int(final_gelu), _DTYPE_CODES[x.dtype], _BODY_CODES[plan.body], plan.smem_bytes,
-        stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"mbconv_chain kernel launch failed: cudaError {err}")
-    mbconv_chain.launches += 1
-    return out
-
-
-mbconv_chain.launches = 0
-

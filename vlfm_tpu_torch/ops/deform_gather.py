@@ -43,6 +43,8 @@ from typing import Sequence, Tuple
 
 import torch
 
+from vlfm_tpu_torch.utils.profiling import count, span
+
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEVELS = 8
 MAX_HEAD_DIM = 128
@@ -255,33 +257,32 @@ def deform_gather(value: torch.Tensor, spatial_shapes: Shapes, grids: torch.Tens
 
     CPU tensors take ``deform_gather_ref``. CUDA tensors launch the kernel on
     the current stream with ``deform_plan``'s launch, all levels in one
-    launch; ``deform_gather.launches`` counts those launches.
+    launch; the counter ``K4.launches`` counts those launches. Each call
+    is a ``vlfm.K4`` span with its shapes and dtype.
     """
-    if value.device.type == "cpu":
-        return deform_gather_ref(value, spatial_shapes, grids, weights)
-    if value.device.type != "cuda":
-        raise ValueError(f"deform_gather runs on CPU or CUDA tensors, got {value.device}")
-    from vlfm_tpu_torch.kernels.build import load_library
+    with span("vlfm.K4", value=value, grids=grids):
+        if value.device.type == "cpu":
+            return deform_gather_ref(value, spatial_shapes, grids, weights)
+        if value.device.type != "cuda":
+            raise ValueError(f"deform_gather runs on CPU or CUDA tensors, got {value.device}")
+        from vlfm_tpu_torch.kernels.build import load_library
 
-    _check_cuda_args(value, spatial_shapes, grids, weights)
-    b, q, nh, nl, npts, _ = grids.shape
-    dh = value.shape[2] // nh
-    out = torch.empty((b, q, nh, dh), dtype=torch.float32, device=value.device)
-    if out.numel() == 0:
+        _check_cuda_args(value, spatial_shapes, grids, weights)
+        b, q, nh, nl, npts, _ = grids.shape
+        dh = value.shape[2] // nh
+        out = torch.empty((b, q, nh, dh), dtype=torch.float32, device=value.device)
+        if out.numel() == 0:
+            return out
+        lib = load_library()
+        plan = plan_for(value, grids, weights)
+        levels = (ctypes.c_int * (2 * nl))(*(n for hw in spatial_shapes for n in hw))
+        err = lib.vlfm_deform_gather(
+            value.data_ptr(), grids.data_ptr(), weights.data_ptr(), out.data_ptr(), levels, nl,
+            b, value.shape[1], q, nh, dh, npts, _DTYPE_CODES[value.dtype], _DTYPE_CODES[weights.dtype],
+            plan.vec, plan.lanes, plan.chunks, plan.warps, SAMPLE_TEMPLATE if plan.samples != "generic" else 0,
+            int(plan.bulk), plan.grid, plan.smem_bytes, torch.cuda.current_stream(value.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"deform_gather kernel launch failed: cudaError {err}")
+        count("K4.launches")
         return out
-    lib = load_library()
-    plan = plan_for(value, grids, weights)
-    levels = (ctypes.c_int * (2 * nl))(*(n for hw in spatial_shapes for n in hw))
-    err = lib.vlfm_deform_gather(
-        value.data_ptr(), grids.data_ptr(), weights.data_ptr(), out.data_ptr(), levels, nl,
-        b, value.shape[1], q, nh, dh, npts, _DTYPE_CODES[value.dtype], _DTYPE_CODES[weights.dtype],
-        plan.vec, plan.lanes, plan.chunks, plan.warps, SAMPLE_TEMPLATE if plan.samples != "generic" else 0,
-        int(plan.bulk), plan.grid, plan.smem_bytes, torch.cuda.current_stream(value.device).cuda_stream,
-    )
-    if err != 0:
-        raise RuntimeError(f"deform_gather kernel launch failed: cudaError {err}")
-    deform_gather.launches += 1
-    return out
-
-
-deform_gather.launches = 0

@@ -9,10 +9,11 @@ Both are label propagation with a bounded loop over a batch of lanes
 (``(B, H, W)`` masks). The JAX package runs them in a ``lax.while_loop``,
 vmapped over episodes; here they are Python loops with the same
 ``max_iters`` and the same check cadence, and each check is one host read
-for all lanes together. The loop runs until every lane has converged or
-``max_iters`` is reached: a converged lane is a fixed point, so the sweeps
-other lanes still need leave it unchanged, and every lane's count of sweeps
-advances alike, as under vmap.
+for all lanes together (a ``vlfm.wait.flood`` or ``vlfm.wait.label`` span;
+the counter ``map.sweeps`` adds each check's sweeps). The loop runs until
+every lane has converged or ``max_iters`` is reached: a converged lane is a
+fixed point, so the sweeps other lanes still need leave it unchanged, and
+every lane's count of sweeps advances alike, as under vmap.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch
 
 from vlfm_tpu_torch.ops.morphology import dilate, max_pool_downsample, upsample_nearest
 from vlfm_tpu_torch.ops.sparse import first_nonzero_indices
+from vlfm_tpu_torch.utils.profiling import count, span
 
 _BIG = torch.iinfo(torch.int32).max
 
@@ -47,9 +49,11 @@ def flood_from_seed(
         nxt = cur
         for _ in range(check_every):
             nxt = dilate(nxt, 3) & mask
-        changed = bool((nxt != cur).any())
+        with span("vlfm.wait.flood"):
+            changed = bool((nxt != cur).any())
         cur = nxt
         i += check_every
+        count("map.sweeps", check_every)
         if not changed:
             break
     return cur
@@ -87,9 +91,11 @@ def label_components(mask: torch.Tensor, max_iters: int) -> torch.Tensor:
         nxt = cur
         for _ in range(4):
             nxt = torch.where(mask, torch.minimum(nxt, _min_label_step(nxt)), big)
-        changed = bool((nxt != cur).any())
+        with span("vlfm.wait.label"):
+            changed = bool((nxt != cur).any())
         cur = nxt
         i += 4
+        count("map.sweeps", 4)
         if not changed:
             break
     return cur

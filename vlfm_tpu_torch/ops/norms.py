@@ -10,8 +10,10 @@ embedding add before a norm into the same launch.
 Both route by the device of their input: a CPU tensor goes to the plain
 version (``layer_norm_ref``, ``add_layer_norm_ref``); a CUDA tensor goes to
 the kernel, or the call raises. There is no fallback from the kernel to the
-plain version. ``layer_norm.launches`` counts every launch of the kernel,
-from either entry; ``add_layer_norm.launches`` counts the fused ones.
+plain version. The counter ``K1.launches`` (``utils/profiling.py``) counts
+every launch of the kernel, from either entry; ``K1.fused_launches`` counts
+the fused ones. Each call is a ``vlfm.K1`` span with its inputs' shapes
+and dtype and the entry that ran (``plain``, ``add_keep_sum`` or ``add``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import functools
 from typing import Optional, Tuple, Union
 
 import torch
+
+from vlfm_tpu_torch.utils.profiling import count, span
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -101,30 +105,28 @@ def layer_norm(
     """LayerNorm over the last axis of any leading shape.
 
     CPU tensors take ``layer_norm_ref``. CUDA tensors launch the kernel on the
-    current stream; ``layer_norm.launches`` counts those launches.
+    current stream; the counter ``K1.launches`` counts those launches.
     """
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"layer_norm runs on CPU or CUDA tensors, got {x.device}")
-        return layer_norm_ref(x, scale, bias, eps)
-    lib, max_d, raw_stream = _library()
-    _check_cuda_args(x, scale, bias, max_d)
-    out = torch.empty_like(x)
-    d = x.shape[-1]
-    rows = x.numel() // d
-    if rows == 0:
+    with span("vlfm.K1", x=x, entry="plain"):
+        if not x.is_cuda:
+            if x.device.type != "cpu":
+                raise ValueError(f"layer_norm runs on CPU or CUDA tensors, got {x.device}")
+            return layer_norm_ref(x, scale, bias, eps)
+        lib, max_d, raw_stream = _library()
+        _check_cuda_args(x, scale, bias, max_d)
+        out = torch.empty_like(x)
+        d = x.shape[-1]
+        rows = x.numel() // d
+        if rows == 0:
+            return out
+        err = lib.vlfm_layer_norm(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
+            rows, d, float(eps), _DTYPE_CODES[x.dtype], raw_stream(x.get_device()),
+        )
+        if err != 0:
+            raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")
+        count("K1.launches")
         return out
-    err = lib.vlfm_layer_norm(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(),
-        rows, d, float(eps), _DTYPE_CODES[x.dtype], raw_stream(x.get_device()),
-    )
-    if err != 0:
-        raise RuntimeError(f"layer_norm kernel launch failed: cudaError {err}")
-    layer_norm.launches += 1
-    return out
-
-
-layer_norm.launches = 0
 
 
 def _h_rows(x: torch.Tensor, h: torch.Tensor) -> int:
@@ -153,37 +155,35 @@ def add_layer_norm(
     Returns ``(s, y)`` with ``keep_sum`` (a pre-norm site, where ``s`` is
     the next residual), else ``y`` (post-norm: ``s`` is never stored).
     CPU tensors take ``add_layer_norm_ref``. CUDA tensors launch the
-    kernel on the current stream; each launch adds one to
-    ``add_layer_norm.launches`` and to ``layer_norm.launches``.
+    kernel on the current stream; each launch adds one to the counters
+    ``K1.fused_launches`` and ``K1.launches``.
     """
-    if h.dtype != x.dtype:
-        raise TypeError(f"add_layer_norm takes x and h of one dtype, got {x.dtype} and {h.dtype}")
-    h_rows = _h_rows(x, h)
-    if not x.is_cuda:
-        if x.device.type != "cpu":
-            raise ValueError(f"add_layer_norm runs on CPU or CUDA tensors, got {x.device}")
-        return add_layer_norm_ref(x, h, scale, bias, eps, keep_sum=keep_sum)
-    lib, max_d, raw_stream = _library()
-    _check_cuda_args(x, scale, bias, max_d)
-    if h.device != x.device:
-        raise ValueError(f"h is on {h.device}, x on {x.device}")
-    if not h.is_contiguous():
-        raise ValueError("add_layer_norm kernel needs a contiguous h")
-    y = torch.empty_like(x)
-    s: Optional[torch.Tensor] = torch.empty_like(x) if keep_sum else None
-    d = x.shape[-1]
-    rows = x.numel() // d
-    if rows > 0:
-        err = lib.vlfm_add_layer_norm(
-            x.data_ptr(), h.data_ptr(), h_rows, scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
-            None if s is None else s.data_ptr(), rows, d, float(eps), _DTYPE_CODES[x.dtype],
-            raw_stream(x.get_device()),
-        )
-        if err != 0:
-            raise RuntimeError(f"add_layer_norm kernel launch failed: cudaError {err}")
-        layer_norm.launches += 1
-        add_layer_norm.launches += 1
-    return (s, y) if keep_sum else y
-
-
-add_layer_norm.launches = 0
+    with span("vlfm.K1", x=x, h=h, entry="add_keep_sum" if keep_sum else "add"):
+        if h.dtype != x.dtype:
+            raise TypeError(f"add_layer_norm takes x and h of one dtype, got {x.dtype} and {h.dtype}")
+        h_rows = _h_rows(x, h)
+        if not x.is_cuda:
+            if x.device.type != "cpu":
+                raise ValueError(f"add_layer_norm runs on CPU or CUDA tensors, got {x.device}")
+            return add_layer_norm_ref(x, h, scale, bias, eps, keep_sum=keep_sum)
+        lib, max_d, raw_stream = _library()
+        _check_cuda_args(x, scale, bias, max_d)
+        if h.device != x.device:
+            raise ValueError(f"h is on {h.device}, x on {x.device}")
+        if not h.is_contiguous():
+            raise ValueError("add_layer_norm kernel needs a contiguous h")
+        y = torch.empty_like(x)
+        s: Optional[torch.Tensor] = torch.empty_like(x) if keep_sum else None
+        d = x.shape[-1]
+        rows = x.numel() // d
+        if rows > 0:
+            err = lib.vlfm_add_layer_norm(
+                x.data_ptr(), h.data_ptr(), h_rows, scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                None if s is None else s.data_ptr(), rows, d, float(eps), _DTYPE_CODES[x.dtype],
+                raw_stream(x.get_device()),
+            )
+            if err != 0:
+                raise RuntimeError(f"add_layer_norm kernel launch failed: cudaError {err}")
+            count("K1.launches")
+            count("K1.fused_launches")
+        return (s, y) if keep_sum else y

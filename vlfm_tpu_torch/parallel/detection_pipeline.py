@@ -38,6 +38,7 @@ from vlfm_tpu_torch.models.sam import SAM
 from vlfm_tpu_torch.models.t5_vqa import T5VQA
 from vlfm_tpu_torch.ops.morphology import dilate, erode
 from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
+from vlfm_tpu_torch.utils.profiling import span
 
 RED = (255, 0, 0)
 
@@ -94,7 +95,8 @@ class VQAVeto:
         centres its line on the boundary, about 1 px either side, which
         dilate & ~erode is (base_objectnav_policy.py:327-328)."""
         ring = dilate(masks, 3) & ~erode(masks, 3)
-        red = torch.tensor(RED, dtype=torch.uint8, device=rgb.device)
+        with span("vlfm.wait.veto_paint"):
+            red = torch.tensor(RED, dtype=torch.uint8, device=rgb.device)
         return torch.where(ring[..., None], red, rgb[:, None]).reshape(-1, *rgb.shape[1:])
 
     def _ask(self, images: torch.Tensor, ids: torch.Tensor, qmask: torch.Tensor) -> torch.Tensor:
@@ -130,7 +132,8 @@ class VQAVeto:
             return valid & self._ask(flat, ids, qmask).reshape(b, k)
         flatv = valid.reshape(b * k)
         order = torch.argsort((~flatv).to(torch.uint8), stable=True)  # valid slots first
-        n_valid = int(flatv.sum())
+        with span("vlfm.wait.veto"):
+            n_valid = int(flatv.sum())
         yes = torch.zeros(b * k, dtype=torch.bool, device=valid.device)
         for p in range(-(-n_valid // cap)):
             start = min(p * cap, b * k - cap)
@@ -143,8 +146,9 @@ def matched_name(coco_cls: torch.Tensor, names: List[str]) -> torch.Tensor:
     """The index into ``names`` of the name each COCO-route detection
     matched (its class indexes ``COCO_CLASSES``); 0 where none does, as
     ``argmax`` of an all-false row."""
-    tids = torch.tensor([COCO_CLASSES.index(n) if n in COCO_CLASSES else -1 for n in names],
-                        dtype=coco_cls.dtype, device=coco_cls.device)
+    with span("vlfm.wait.veto_names"):
+        tids = torch.tensor([COCO_CLASSES.index(n) if n in COCO_CLASSES else -1 for n in names],
+                            dtype=coco_cls.dtype, device=coco_cls.device)
     return torch.argmax((coco_cls[..., None] == tids).to(torch.uint8), dim=-1).to(coco_cls.dtype)
 
 
@@ -179,20 +183,23 @@ class DetectionPipeline:
         return self._query_cache[target]
 
     def _open_vocab(self, rgb: torch.Tensor, target: str, threshold: float):
-        ids, qmask = self._queries(target)
-        boxes, logits = self.detector.detect(self.detector.preprocess(rgb), ids, qmask)
-        return top_detections(boxes, logits, capacity=self.max_detections, threshold=threshold)
+        with span("vlfm.detect.open_vocab", frames=rgb.shape[0]):
+            ids, qmask = self._queries(target)
+            boxes, logits = self.detector.detect(self.detector.preprocess(rgb), ids, qmask)
+            return top_detections(boxes, logits, capacity=self.max_detections, threshold=threshold)
 
     def _coco_path(self, rgb: torch.Tensor, target: str):
         """Closed-vocabulary detections filtered to the target class(es)
         (detections.filter_by_class, base_objectnav_policy.py:231)."""
-        xyxy, scores, cls, valid = self.coco_detector.predict(rgb)
-        target_ids = torch.tensor(
-            [COCO_CLASSES.index(n) for n in target.split("|") if n in COCO_CLASSES],
-            dtype=torch.int32, device=cls.device,
-        )
-        keep = (cls[..., None] == target_ids[None, None, :]).any(-1)
-        return xyxy, scores, cls, valid & keep
+        with span("vlfm.detect.coco", frames=rgb.shape[0]):
+            xyxy, scores, cls, valid = self.coco_detector.predict(rgb)
+            with span("vlfm.wait.coco_ids"):
+                target_ids = torch.tensor(
+                    [COCO_CLASSES.index(n) for n in target.split("|") if n in COCO_CLASSES],
+                    dtype=torch.int32, device=cls.device,
+                )
+            keep = (cls[..., None] == target_ids[None, None, :]).any(-1)
+            return xyxy, scores, cls, valid & keep
 
     @torch.inference_mode()
     def __call__(self, rgb: torch.Tensor, target: str, out_hw: Optional[Tuple[int, int]] = None):
@@ -235,7 +242,8 @@ class DetectionPipeline:
             masks = (resize_bilinear_hw(masks_lr.to(torch.float32), fh, fw) > 0.5) & valid[:, :, None, None]
             names = target.split("|")
             phrase_cls = cls if coco_lanes is None else torch.where(coco_lanes[:, None], matched_name(cls, names), cls)
-            valid = self.vqa_veto(rgb, masks, valid, names, phrase_cls)
+            with span("vlfm.veto"):
+                valid = self.vqa_veto(rgb, masks, valid, names, phrase_cls)
             if (h, w) == (fh, fw):
                 return masks & valid[:, :, None, None], valid, (xyxy, scores, cls)
         masks = resize_bilinear_hw(masks_lr.to(torch.float32), h, w) > 0.5

@@ -44,6 +44,7 @@ from vlfm_tpu_torch.policy import acyclic as AC
 from vlfm_tpu_torch.policy.frontier_selection import reduce_values_v3, select_best_frontier
 from vlfm_tpu_torch.utils.geometry import rho_theta
 from vlfm_tpu_torch.utils.img import resize_area
+from vlfm_tpu_torch.utils.profiling import span
 
 STOP, MOVE_FORWARD, TURN_LEFT, TURN_RIGHT = 0, 1, 2, 3  # habitat_policies.py:54-58
 MODE_INITIALIZE, MODE_EXPLORE, MODE_NAVIGATE = 0, 1, 2
@@ -237,92 +238,101 @@ def step(
 ):
     """One decision step for every lane: (action (B,) int32, StepInfo, new
     state). The obstacle and value maps of ``state`` are updated in place
-    and returned in the new state."""
-    if version not in VERSIONS:
-        raise ValueError(f"version must be one of {VERSIONS}, not {version!r}")
-    if isinstance(pointnav, str) and pointnav != "greedy":
-        raise ValueError(f"pointnav must be 'greedy' or a PointNavPolicy, not {pointnav!r}")
-    cam = cfg.camera
-    tf, robot_xy = obs.tf_camera_to_episodic, obs.robot_xy
-    # The object map may take an inferred depth (base_objectnav_policy.py:
-    # 314-318); the obstacle and value maps keep the sensor's.
-    if object_depth is None:
-        object_depth = obs.depth
+    and returned in the new state. The call is a ``vlfm.step`` span, with
+    ``vlfm.map.obstacle``, ``vlfm.map.value``, ``vlfm.map.object``,
+    ``vlfm.frontier`` and (a ``PointNavPolicy``) ``vlfm.pointnav`` inside."""
+    with span("vlfm.step"):
+        if version not in VERSIONS:
+            raise ValueError(f"version must be one of {VERSIONS}, not {version!r}")
+        if isinstance(pointnav, str) and pointnav != "greedy":
+            raise ValueError(f"pointnav must be 'greedy' or a PointNavPolicy, not {pointnav!r}")
+        cam = cfg.camera
+        tf, robot_xy = obs.tf_camera_to_episodic, obs.robot_xy
+        # The object map may take an inferred depth (base_objectnav_policy.py:
+        # 314-318); the obstacle and value maps keep the sensor's.
+        if object_depth is None:
+            object_depth = obs.depth
 
-    rc = spec.xy_to_px(robot_xy)
-    in_bounds = ((rc >= EDGE_MARGIN) & (rc < spec.size - EDGE_MARGIN)).all(dim=-1)
+        rc = spec.xy_to_px(robot_xy)
+        in_bounds = ((rc >= EDGE_MARGIN) & (rc < spec.size - EDGE_MARGIN)).all(dim=-1)
 
-    obstacle = update_obstacles(state.obstacle, spec, cfg, obs.depth, tf, state.steps)
-    value = VM.update(
-        state.value, spec, cosines, obs.depth, tf, cam.min_depth, cam.max_depth, cam.hfov,
-        use_max_confidence=cfg.use_max_confidence, fusion_type=FUSION_TYPES[cfg.map_fusion_type],
-        explored=obstacle.explored if cfg.sync_explored_areas else None,
-    )
-    target_detected, obj_goal, objmap = update_objects(
-        state.objmap, spec, cfg, object_depth, det_masks, det_valid, tf, robot_xy, keys)
+        with span("vlfm.map.obstacle"):
+            obstacle = update_obstacles(state.obstacle, spec, cfg, obs.depth, tf, state.steps)
+        with span("vlfm.map.value"):
+            value = VM.update(
+                state.value, spec, cosines, obs.depth, tf, cam.min_depth, cam.max_depth, cam.hfov,
+                use_max_confidence=cfg.use_max_confidence, fusion_type=FUSION_TYPES[cfg.map_fusion_type],
+                explored=obstacle.explored if cfg.sync_explored_areas else None,
+            )
+        with span("vlfm.map.object"):
+            target_detected, obj_goal, objmap = update_objects(
+                state.objmap, spec, cfg, object_depth, det_masks, det_valid, tf, robot_xy, keys)
 
-    fvalues, frontier_cache = _frontier_values(version, state.frontier_cache, obstacle, value, spec, cfg, cosines,
-                                               robot_xy)
-    choice = select_best_frontier(obstacle.frontiers_xy, obstacle.frontiers_valid, fvalues, robot_xy,
-                                  state.last_frontier, state.last_value, state.acyclic)
+        with span("vlfm.frontier"):
+            fvalues, frontier_cache = _frontier_values(version, state.frontier_cache, obstacle, value, spec, cfg,
+                                                       cosines, robot_xy)
+            choice = select_best_frontier(obstacle.frontiers_xy, obstacle.frontiers_valid, fvalues, robot_xy,
+                                          state.last_frontier, state.last_value, state.acyclic)
 
-    # --- mode dispatch ---------------------------------------------------
-    initializing = state.steps < cfg.num_init_turns
-    navigate = target_detected & ~initializing
-    explore = ~initializing & ~navigate
-    mode = torch.where(initializing, MODE_INITIALIZE,
-                       torch.where(navigate, MODE_NAVIGATE, MODE_EXPLORE)).to(torch.int32)
-    goal = torch.where(navigate[:, None], obj_goal, choice.frontier)
+        # --- mode dispatch ---------------------------------------------------
+        initializing = state.steps < cfg.num_init_turns
+        navigate = target_detected & ~initializing
+        explore = ~initializing & ~navigate
+        mode = torch.where(initializing, MODE_INITIALIZE,
+                           torch.where(navigate, MODE_NAVIGATE, MODE_EXPLORE)).to(torch.int32)
+        goal = torch.where(navigate[:, None], obj_goal, choice.frontier)
 
-    # --- pointnav (base_objectnav_policy.py:243-279) ---------------------
-    goal_changed = (goal != state.last_goal).any(dim=-1)
-    big_change = torch.linalg.vector_norm(goal - state.last_goal, dim=-1) > 0.1
-    # not_done False makes act() zero the recurrence and the previous action.
-    not_done = state.pointnav.not_done & (~big_change & (state.steps != 0))[:, None]
-    pn = state.pointnav._replace(not_done=not_done)
-    last_goal = torch.where(goal_changed[:, None], goal, state.last_goal)
+        # --- pointnav (base_objectnav_policy.py:243-279) ---------------------
+        goal_changed = (goal != state.last_goal).any(dim=-1)
+        big_change = torch.linalg.vector_norm(goal - state.last_goal, dim=-1) > 0.1
+        # not_done False makes act() zero the recurrence and the previous action.
+        not_done = state.pointnav.not_done & (~big_change & (state.steps != 0))[:, None]
+        pn = state.pointnav._replace(not_done=not_done)
+        last_goal = torch.where(goal_changed[:, None], goal, state.last_goal)
 
-    rho, theta = rho_theta(robot_xy, obs.robot_heading, goal)
-    if isinstance(pointnav, str):
-        pn_action = greedy_action(theta)
-    else:
-        with exact_f32(obs.depth.device):  # PointNav's input stays f32, as in JAX
-            nav_depth = resize_area(obs.depth, tuple(cfg.depth_image_shape))
-        pn_action, pn = pointnav.act(nav_depth, torch.stack([rho, theta], dim=-1), pn, deterministic=True)
-        pn_action = pn_action[:, 0].to(torch.int32)
+        rho, theta = rho_theta(robot_xy, obs.robot_heading, goal)
+        if isinstance(pointnav, str):
+            pn_action = greedy_action(theta)
+        else:
+            with span("vlfm.pointnav"):
+                with exact_f32(obs.depth.device):  # PointNav's input stays f32, as in JAX
+                    nav_depth = resize_area(obs.depth, tuple(cfg.depth_image_shape))
+                pn_action, pn = pointnav.act(nav_depth, torch.stack([rho, theta], dim=-1), pn, deterministic=True)
+                pn_action = pn_action[:, 0].to(torch.int32)
 
-    reached = navigate & (rho < cfg.pointnav_stop_radius)
-    no_frontier = explore & ~choice.any_valid  # itm_policy.py:66-68 -> STOP
-    action = torch.where(
-        ~in_bounds, STOP,
-        torch.where(initializing, TURN_LEFT, torch.where(reached | no_frontier, STOP, pn_action)),
-    ).to(torch.int32)
-    called_stop = state.called_stop | reached
+        reached = navigate & (rho < cfg.pointnav_stop_radius)
+        no_frontier = explore & ~choice.any_valid  # itm_policy.py:66-68 -> STOP
+        action = torch.where(
+            ~in_bounds, STOP,
+            torch.where(initializing, TURN_LEFT, torch.where(reached | no_frontier, STOP, pn_action)),
+        ).to(torch.int32)
+        called_stop = state.called_stop | reached
 
-    # The frontier's stickiness and the acyclic memory move only on lanes
-    # that explored this step.
-    new_state = PolicyState(
-        steps=state.steps + 1,
-        last_goal=last_goal,
-        called_stop=called_stop,
-        last_value=torch.where(explore, choice.last_value, state.last_value),
-        last_frontier=torch.where(explore[:, None], choice.last_frontier, state.last_frontier),
-        pointnav=pn,
-        obstacle=obstacle,
-        value=value,
-        objmap=objmap,
-        acyclic=AC.AcyclicState(*(_where_lanes(explore, new, old) for new, old in zip(choice.acyclic, state.acyclic))),
-        frontier_cache=frontier_cache,
-    )
-    info = StepInfo(
-        mode=mode,
-        action=action,
-        rho=rho,
-        theta=theta,
-        best_value=choice.value,
-        goal=goal,
-        num_frontiers=obstacle.frontiers_valid.sum(dim=-1),
-        target_detected=target_detected,
-        stop_called=called_stop,
-    )
-    return action, info, new_state
+        # The frontier's stickiness and the acyclic memory move only on lanes
+        # that explored this step.
+        new_state = PolicyState(
+            steps=state.steps + 1,
+            last_goal=last_goal,
+            called_stop=called_stop,
+            last_value=torch.where(explore, choice.last_value, state.last_value),
+            last_frontier=torch.where(explore[:, None], choice.last_frontier, state.last_frontier),
+            pointnav=pn,
+            obstacle=obstacle,
+            value=value,
+            objmap=objmap,
+            acyclic=AC.AcyclicState(*(_where_lanes(explore, new, old)
+                                      for new, old in zip(choice.acyclic, state.acyclic))),
+            frontier_cache=frontier_cache,
+        )
+        info = StepInfo(
+            mode=mode,
+            action=action,
+            rho=rho,
+            theta=theta,
+            best_value=choice.value,
+            goal=goal,
+            num_frontiers=obstacle.frontiers_valid.sum(dim=-1),
+            target_detected=target_detected,
+            stop_called=called_stop,
+        )
+        return action, info, new_state

@@ -49,6 +49,7 @@ from vlfm_tpu_torch.policy import itm
 from vlfm_tpu_torch.policy.frontier_selection import reduce_values_v3, select_best_frontier
 from vlfm_tpu_torch.utils.geometry import rho_theta
 from vlfm_tpu_torch.utils.img import resize_area
+from vlfm_tpu_torch.utils.profiling import span
 
 # reality_policies.py:16
 INITIAL_ARM_YAWS = np.deg2rad([-90, -60, -30, 0, 30, 60, 90, 0]).astype(np.float32)
@@ -266,6 +267,7 @@ class RealityITMPolicyV2:
         self.infer_depth_fn = infer_depth_fn
         self.device = torch.device(device)
         self.rng = threefry.PRNGKey(seed, device=self.device)
+        self.acts = 0
         self.reset()
 
     def reset(self) -> None:
@@ -275,61 +277,65 @@ class RealityITMPolicyV2:
         return torch.as_tensor(x, device=self.device).to(dtype)[None]
 
     def get_action(self, obs: dict) -> dict:
-        cfg, dev = self.cfg, self.device
-        k = cfg.max_detections_per_frame
-        rgb = obs["rgb"]
-        h, w = rgb.shape[:2]
+        """One decision: the action dict, from one read back. The call is a
+        ``vlfm.act`` span whose ``decision`` counts the policy's acts."""
+        self.acts += 1
+        with span("vlfm.act", decision=self.acts - 1):
+            cfg, dev = self.cfg, self.device
+            k = cfg.max_detections_per_frame
+            rgb = obs["rgb"]
+            h, w = rgb.shape[:2]
 
-        # Detections, and monocular depth for the object map.
-        masks = np.zeros((k, h, w), bool)
-        valid = np.zeros(k, bool)
-        if self.detect_fn is not None:
-            masks, valid = self.detect_fn(rgb)
-        hand_depth = torch.ones((1, h, w), dtype=torch.float32, device=dev)  # an RGB-only gripper camera
-        object_depth = hand_depth
-        if self.infer_depth_fn is not None and bool(torch.as_tensor(valid).any()):
-            object_depth = self._lane(self.infer_depth_fn(rgb, 0.0, obs["hand_max_depth"]), torch.float32)
+            # Detections, and monocular depth for the object map.
+            masks = np.zeros((k, h, w), bool)
+            valid = np.zeros(k, bool)
+            if self.detect_fn is not None:
+                masks, valid = self.detect_fn(rgb)
+            hand_depth = torch.ones((1, h, w), dtype=torch.float32, device=dev)  # an RGB-only gripper camera
+            object_depth = hand_depth
+            if self.infer_depth_fn is not None and bool(torch.as_tensor(valid).any()):
+                object_depth = self._lane(self.infer_depth_fn(rgb, 0.0, obs["hand_max_depth"]), torch.float32)
 
-        # The fixed 5-slot body-camera stack.
-        ods = obs["obstacle_depths"]
-        if not 0 < len(ods) <= MAX_BODY_CAMS:
-            raise ValueError(f"{len(ods)} body cameras; the stack holds 1 to {MAX_BODY_CAMS}")
-        depth5 = np.zeros((MAX_BODY_CAMS, *ods[0]["depth"].shape), np.float32)
-        tf5 = np.tile(np.eye(4, dtype=np.float32), (MAX_BODY_CAMS, 1, 1))
-        pad = MAX_BODY_CAMS - len(ods)
-        for i, od in enumerate(ods):
-            depth5[i], tf5[i] = od["depth"], od["tf"]
-        body = BodyCams(
-            depth=torch.from_numpy(depth5).to(dev), tf=torch.from_numpy(tf5).to(dev),
-            fx=tuple(_f32(od["fx"]) for od in ods) + (1.0,) * pad,
-            fy=tuple(_f32(od["fy"]) for od in ods) + (1.0,) * pad,
-            fov=tuple(_f32(od["topdown_fov"]) for od in ods) + (1.0,) * pad,
-            max_depth=tuple(_f32(od["max_depth"]) for od in ods) + (1.0,) * pad,
-            valid=(True,) * len(ods) + (False,) * pad,
-        )
-        hand = HandCam(tf=self._lane(np.asarray(obs["hand_tf"], np.float32), torch.float32),
-                       fov=_f32(obs["hand_fov"]), fx=_f32(obs["hand_fx"]), fy=_f32(obs["hand_fy"]),
-                       max_depth=_f32(obs["hand_max_depth"]))
-        cos = self._lane(self.score_fn(rgb), torch.float32)[:, : cfg.value_channels]
+            # The fixed 5-slot body-camera stack.
+            ods = obs["obstacle_depths"]
+            if not 0 < len(ods) <= MAX_BODY_CAMS:
+                raise ValueError(f"{len(ods)} body cameras; the stack holds 1 to {MAX_BODY_CAMS}")
+            depth5 = np.zeros((MAX_BODY_CAMS, *ods[0]["depth"].shape), np.float32)
+            tf5 = np.tile(np.eye(4, dtype=np.float32), (MAX_BODY_CAMS, 1, 1))
+            pad = MAX_BODY_CAMS - len(ods)
+            for i, od in enumerate(ods):
+                depth5[i], tf5[i] = od["depth"], od["tf"]
+            body = BodyCams(
+                depth=torch.from_numpy(depth5).to(dev), tf=torch.from_numpy(tf5).to(dev),
+                fx=tuple(_f32(od["fx"]) for od in ods) + (1.0,) * pad,
+                fy=tuple(_f32(od["fy"]) for od in ods) + (1.0,) * pad,
+                fov=tuple(_f32(od["topdown_fov"]) for od in ods) + (1.0,) * pad,
+                max_depth=tuple(_f32(od["max_depth"]) for od in ods) + (1.0,) * pad,
+                valid=(True,) * len(ods) + (False,) * pad,
+            )
+            hand = HandCam(tf=self._lane(np.asarray(obs["hand_tf"], np.float32), torch.float32),
+                           fov=_f32(obs["hand_fov"]), fx=_f32(obs["hand_fx"]), fy=_f32(obs["hand_fy"]),
+                           max_depth=_f32(obs["hand_max_depth"]))
+            cos = self._lane(self.score_fn(rgb), torch.float32)[:, : cfg.value_channels]
 
-        self.rng, sub = threefry.split(self.rng)
-        self.last_inputs = (
-            body, hand, cos, hand_depth, object_depth,
-            self._lane(masks, torch.bool), self._lane(valid, torch.bool),
-            self._lane(np.asarray(obs["nav_depth"], np.float32), torch.float32),
-            self._lane(np.asarray(obs["robot_xy"], np.float32), torch.float32),
-            self._lane(np.float32(obs["heading"]), torch.float32),
-            sub[None],
-        )
-        action, self.state = reality_step(self.state, *self.last_inputs, pointnav=self.pointnav, spec=self.spec,
-                                          cfg=cfg, version=self.version)
-        # One read back: angular, linear, arm_yaw, stop, rho, theta.
-        out = torch.stack([action.angular, action.linear, action.arm_yaw, action.stop.to(torch.float32),
-                           action.rho, action.theta], dim=-1)[0].cpu().numpy()
-        return {
-            "angular": float(out[0]),
-            "linear": float(out[1]),
-            "arm_yaw": float(out[2]),
-            "stop": bool(out[3]),
-            "rho_theta": (float(out[4]), float(out[5])),
-        }
+            self.rng, sub = threefry.split(self.rng)
+            self.last_inputs = (
+                body, hand, cos, hand_depth, object_depth,
+                self._lane(masks, torch.bool), self._lane(valid, torch.bool),
+                self._lane(np.asarray(obs["nav_depth"], np.float32), torch.float32),
+                self._lane(np.asarray(obs["robot_xy"], np.float32), torch.float32),
+                self._lane(np.float32(obs["heading"]), torch.float32),
+                sub[None],
+            )
+            action, self.state = reality_step(self.state, *self.last_inputs, pointnav=self.pointnav, spec=self.spec,
+                                              cfg=cfg, version=self.version)
+            # One read back: angular, linear, arm_yaw, stop, rho, theta.
+            out = torch.stack([action.angular, action.linear, action.arm_yaw, action.stop.to(torch.float32),
+                               action.rho, action.theta], dim=-1)[0].cpu().numpy()
+            return {
+                "angular": float(out[0]),
+                "linear": float(out[1]),
+                "arm_yaw": float(out[2]),
+                "stop": bool(out[3]),
+                "rho_theta": (float(out[4]), float(out[5])),
+            }

@@ -23,13 +23,17 @@ runs on the card, or on the CPU with ``--cpu``. Backends:
 serves a bundle written by ``python -m vlfm_tpu_torch.convert_checkpoints``
 (``runner/weights.py``) in the habitat backend and in the synthetic
 backend's ``--farm``: the full stack over the streamed frames. The JAX
-package's orbax bundles are refused with a message.
+package's orbax bundles are refused with a message. ``--trace-dir DIR``
+keeps the program's spans and counters for the whole run
+(``utils/profiling.tracing``) and writes them to ``DIR/spans.json`` at its
+end, a Chrome trace for Perfetto.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 
 
 def load_pointnav_weights(path: str, depth_shape, device):
@@ -80,8 +84,21 @@ def main() -> None:
     p.add_argument("--video-dir", default=None)
     p.add_argument("--log-dir", default=None)
     p.add_argument("--cpu", action="store_true", help="run on the CPU instead of the card")
+    p.add_argument("--trace-dir", default=None,
+                   help="keep the program's spans and counters and write them to DIR/spans.json (Perfetto)")
     args = p.parse_args()
+    if not args.trace_dir:
+        return _run(args)
+    from vlfm_tpu_torch.utils import profiling
 
+    with profiling.tracing():
+        try:
+            _run(args)
+        finally:
+            profiling.write_spans(os.path.join(args.trace_dir, "spans.json"))
+
+
+def _run(args) -> None:
     if args.weights_dir:
         from vlfm_tpu_torch.runner.weights import BundleError, read_manifest
 

@@ -25,6 +25,7 @@ either encoder (``SamConfig()`` is sam-vit-base's ViT-det).
 
 from __future__ import annotations
 
+import itertools
 import time
 from typing import Callable, Optional, Tuple
 
@@ -56,6 +57,7 @@ from vlfm_tpu_torch.runner.episode_driver import (
     step_keys,
 )
 from vlfm_tpu_torch.utils.measurements import TraveledStairs
+from vlfm_tpu_torch.utils.profiling import span
 
 
 def tiny_sam_config() -> SamConfig:
@@ -159,9 +161,10 @@ class FullStackPerception:
         """ITM cosines (all prompt channels), masks and validity of a device
         frame batch, with the models read now (weights loaded after an
         earlier call are the ones served)."""
-        cos = self.itm.cosine_cached_text(self.itm.preprocess(rgb), self.engine.text_features(target))
-        masks, valid, _ = self.pipeline(rgb, target, out_hw)
-        return cos, masks, valid
+        with span("vlfm.perceive", frames=rgb.shape[0]):
+            cos = self.itm.cosine_cached_text(self.itm.preprocess(rgb), self.engine.text_features(target))
+            masks, valid, _ = self.pipeline(rgb, target, out_hw)
+            return cos, masks, valid
 
     def batch(self, rgb_b, target: str):
         """(B, H, W, 3) uint8 (host numpy or a tensor) -> (cosines (B, C),
@@ -225,36 +228,55 @@ class FullStackPerception:
         the masks by resampling SAM's output to the camera grid), so
         ``step`` always sees (H, W). The callable is cached per (target,
         version, pointnav, spec, cfg, layout); the models are read at each
-        call."""
+        call.
+
+        Each call is a ``vlfm.dispatch`` span whose ``decision`` is the
+        callable's call count, with ``vlfm.dispatch.unpack`` (the copy, the
+        views, depth brought to the camera grid, the camera poses and the
+        keys), ``vlfm.reset_lanes``, ``vlfm.perceive``, ``vlfm.step`` and,
+        packed, ``vlfm.dispatch.pack`` inside."""
         key = (target, version, id(pointnav), id(spec), id(cfg), layout)
         if key in self._fused_cache:
             return self._fused_cache[key][0]
         h, w = cfg.camera.height, cfg.camera.width
         device = self.device
+        calls = itertools.count()
 
-        def fused(gstate, reset_mask, depth, heading, xy, rgb, seeds, steps):
+        def camera_inputs(depth, heading, xy, seeds, steps):
+            """The step's observation (depth on the camera grid) and keys."""
             if depth.dtype == torch.uint16:  # u16 transport
                 depth = depth.to(torch.float32) * (1.0 / 65535.0)
             if tuple(depth.shape[-2:]) != (h, w):  # half-size transport
                 depth = resize_bilinear_hw(depth, h, w)
-            gstate = itm.reset_lanes(gstate, reset_mask)
+            return observation(depth, xy, heading, cfg), step_keys(seeds, steps)
+
+        def fused(gstate, reset_mask, obs, rgb, keys):
+            with span("vlfm.reset_lanes"):
+                gstate = itm.reset_lanes(gstate, reset_mask)
             cos, masks, valid = self._perceive(rgb, target, (h, w))
-            action, info, gstate = itm.step(
-                gstate, observation(depth, xy, heading, cfg), cos[:, : cfg.value_channels], masks, valid,
-                step_keys(seeds, steps), pointnav=pointnav, spec=spec, cfg=cfg, version=version)
+            action, info, gstate = itm.step(gstate, obs, cos[:, : cfg.value_channels], masks, valid, keys,
+                                            pointnav=pointnav, spec=spec, cfg=cfg, version=version)
             return action, info, gstate
 
         if layout is not None:
             def call(gstate, fresh, packed_u8):
-                f = packing.unpack_device(layout, torch.as_tensor(packed_u8).to(device, non_blocking=True))
-                action, info, gstate = fused(gstate, f["reset"].to(torch.bool), f["depth"], f["heading"], f["xy"],
-                                             f["rgb"], f["seeds"], f["steps"])
-                return pack_outputs(action, info), gstate
+                with span("vlfm.dispatch", decision=next(calls)):
+                    with span("vlfm.dispatch.unpack"):
+                        f = packing.unpack_device(layout, torch.as_tensor(packed_u8).to(device, non_blocking=True))
+                        reset = f["reset"].to(torch.bool)
+                        obs, keys = camera_inputs(f["depth"], f["heading"], f["xy"], f["seeds"], f["steps"])
+                    action, info, gstate = fused(gstate, reset, obs, f["rgb"], keys)
+                    with span("vlfm.dispatch.pack"):
+                        return pack_outputs(action, info), gstate
         else:
             def call(gstate, fresh, reset_mask, depth, heading, xy, rgb, seeds, steps):
-                put = [torch.as_tensor(x).to(device) for x in (reset_mask, depth, heading, xy, rgb, seeds, steps)]
-                action, info, gstate = fused(gstate, put[0].to(torch.bool), *put[1:])
-                return action, info.target_detected, info.goal, gstate
+                with span("vlfm.dispatch", decision=next(calls)):
+                    with span("vlfm.dispatch.unpack"):
+                        reset, depth, heading, xy, rgb, seeds, steps = (
+                            torch.as_tensor(x).to(device) for x in (reset_mask, depth, heading, xy, rgb, seeds, steps))
+                        obs, keys = camera_inputs(depth, heading, xy, seeds, steps)
+                    action, info, gstate = fused(gstate, reset.to(torch.bool), obs, rgb, keys)
+                    return action, info.target_detected, info.goal, gstate
 
         # the entry keeps (pointnav, spec, cfg) alive, so their ids stay unique
         self._fused_cache[key] = (call, (pointnav, spec, cfg))

@@ -12,17 +12,36 @@ systematic profiling (wall-clock prints only). Here:
 PyTorch returns before the card finishes, so a section or a call is timed
 up to ``force_sync``, which waits for the card of the first CUDA tensor it
 finds. A CPU tensor has nothing to wait for.
+
+The program's own spans and counters live here too:
+
+- ``span(name, **attrs)``: a span around a layer's call. It is on inside
+  ``tracing()`` or while a ``torch.profiler`` records; then it keeps a
+  record (name, start and end on the profiler's host clock, its parent's
+  id, its root's ``decision`` id, ``attrs`` with each tensor given as its
+  shape and dtype) in a bounded ring, and under a profiler it is also a
+  ``record_function`` annotation of the same name. Off, it is one flag
+  check and one profiler check. Every name starts with ``vlfm.``; a
+  ``vlfm.wait.<site>`` span holds one host read of a device value, so its
+  duration is the time the host blocked for the device.
+- ``count(name, n=1)``, ``counters()``, ``reset_counters()``: host integers,
+  always counted, such as ``K1.launches`` or ``sam.passes``.
+- ``spans()``, ``reset_spans()`` and ``write_spans(path)`` (a Chrome trace
+  of the kept spans and the counters, for Perfetto).
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
+import json
 import os
 import statistics
 import tempfile
+import threading
 import time
-from collections import defaultdict
-from typing import Callable, Dict, List, Optional
+from collections import defaultdict, deque
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 from torch.profiler import ProfilerActivity, profile, supported_activities
@@ -97,3 +116,166 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 1) -> float:
         out = fn(*args)
     force_sync(out)
     return (time.perf_counter() - t0) / iters
+
+
+# --- the program's spans and counters -------------------------------------------------
+
+SPAN_CAPACITY = 1 << 16
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_counters: Dict[str, int] = defaultdict(int)
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    start_ns: int  # the profiler's host clock (time.time_ns)
+    end_ns: int
+    id: int
+    parent: Optional[int]  # the enclosing span's id; None for a root
+    decision: Optional[int]  # the root span's ``decision`` attr
+    thread: int
+    attrs: Dict[str, Any]
+
+
+class _OpenSpans(threading.local):
+    """Per thread: the open spans. The ring of kept spans and their ids are
+    the process's (``_Ring``)."""
+
+    def __init__(self):
+        self.stack: List["_Span"] = []
+
+
+class _Ring:
+    def __init__(self):
+        self.records: deque = deque(maxlen=SPAN_CAPACITY)
+        self.ids = itertools.count()
+        self.lock = threading.Lock()
+
+
+class _Null:
+    """The span of a run with tracing off: enters and leaves, and keeps nothing."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_on = False
+_ring = _Ring()
+_open = _OpenSpans()
+_NULL = _Null()
+
+
+def _attr(v):
+    if isinstance(v, torch.Tensor):
+        return {"shape": list(v.shape), "dtype": str(v.dtype).rpartition(".")[2]}
+    return v
+
+
+class _Span:
+    __slots__ = ("name", "attrs", "id", "parent", "decision", "t0", "rf")
+
+    def __init__(self, name: str, attrs: Dict[str, Any]):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _open.stack
+        parent = stack[-1] if stack else None
+        self.id = next(_ring.ids)
+        self.parent = None if parent is None else parent.id
+        decision = self.attrs.pop("decision", None)
+        self.decision = decision if parent is None else parent.decision
+        stack.append(self)
+        self.rf = None
+        if _profiler_enabled():
+            # The annotation stamps its start inside __enter__: the midpoint
+            # of the stamps around it is the nearest on the host's clock.
+            t = time.time_ns()
+            self.rf = torch.profiler.record_function(self.name)
+            self.rf.__enter__()
+            self.t0 = (t + time.time_ns()) // 2
+        else:
+            self.t0 = time.time_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.time_ns()
+        if self.rf is not None:
+            self.rf.__exit__(*exc)
+        _open.stack.pop()
+        rec = SpanRecord(self.name, self.t0, t1, self.id, self.parent, self.decision, threading.get_ident(),
+                         {k: _attr(v) for k, v in self.attrs.items()})
+        with _ring.lock:
+            if len(_ring.records) == _ring.records.maxlen:
+                _counters["spans.dropped"] += 1
+            _ring.records.append(rec)
+        return False
+
+
+def span(name: str, **attrs):
+    """A span named ``name`` (``vlfm.<layer>``) around the block. On inside
+    ``tracing()`` or while a ``torch.profiler`` records, else a shared null
+    context. ``decision=`` on a root span is the id its children carry; a
+    tensor attr is kept as its shape and dtype."""
+    if _on or _profiler_enabled():
+        return _Span(name, attrs)
+    return _NULL
+
+
+@contextlib.contextmanager
+def tracing():
+    """Keep the program's spans in memory while the block runs (with or
+    without a profiler); ``spans()`` reads them."""
+    global _on
+    was, _on = _on, True
+    try:
+        yield
+    finally:
+        _on = was
+
+
+def spans() -> List[SpanRecord]:
+    """The kept spans, oldest first (the ring's newest ``SPAN_CAPACITY``),
+    in the order they ended."""
+    with _ring.lock:
+        return list(_ring.records)
+
+
+def reset_spans() -> None:
+    with _ring.lock:
+        _ring.records.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``: a host integer, counted whether or
+    not tracing is on; it never reads a device value."""
+    _counters[name] += n
+
+
+def counters() -> Dict[str, int]:
+    return dict(_counters)
+
+
+def reset_counters() -> None:
+    _counters.clear()
+
+
+def write_spans(path: str) -> None:
+    """The kept spans and the counters as a Chrome trace (Perfetto,
+    ``chrome://tracing``): one complete event per span, in microseconds on
+    the profiler's host clock, its attrs, id, parent and decision as args;
+    the counters at the end of the last span."""
+    recs = sorted(spans(), key=lambda r: r.start_ns)
+    pid = os.getpid()
+    events = [{"name": r.name, "ph": "X", "ts": r.start_ns / 1e3, "dur": (r.end_ns - r.start_ns) / 1e3,
+               "pid": pid, "tid": r.thread,
+               "args": {**r.attrs, "id": r.id, "parent": r.parent, "decision": r.decision}} for r in recs]
+    end = max((r.end_ns for r in recs), default=time.time_ns()) / 1e3
+    events += [{"name": name, "ph": "C", "ts": end, "pid": pid, "args": {name: value}}
+               for name, value in sorted(counters().items())]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"traceEvents": events, "displayTimeUnit": "ms", "otherData": {"counters": counters()}}, f)
