@@ -296,6 +296,7 @@ from vlfm_tpu_torch.models.tokenizer import WordPieceTokenizer, toy_vocab
 from vlfm_tpu_torch.ops.attention import attention, attention_plan, attention_ref, attention_tolerance, qkv_views
 from vlfm_tpu_torch.ops.conv_fused import chain_plan, chain_tolerance, mbconv_chain, mbconv_chain_ref
 from vlfm_tpu_torch.ops.deform_gather import deform_gather, deform_gather_ref, deform_gather_tolerance, plan_for
+from vlfm_tpu_torch.ops import flood as FL
 from vlfm_tpu_torch.ops.norms import add_layer_norm, add_layer_norm_ref, bf16_tolerance, layer_norm, layer_norm_ref
 from vlfm_tpu_torch.ops import threefry
 from vlfm_tpu_torch.ops.resize import resize_bilinear
@@ -1069,6 +1070,113 @@ def phase_tiny_obstacle_map() -> None:
     check(all(f <= MAP_FLIPS * cells for f in flips.values()), "tiny obstacle map differs between card and CPU")
     check(valid_eq and fr_err <= FRONTIER_ATOL_M, "tiny obstacle map frontiers differ between card and CPU")
     check(bool(want.frontiers_valid.any()), "tiny obstacle map found no frontier")
+
+
+# --- phase 5b ----------------------------------------------------------------
+def sweep_case(lanes: int, size: int, gen: np.random.Generator):
+    """A flood and a labelling input like the obstacle map's at ``size``: an
+    explored disc of 120 px with scattered walls around the agent, seeded by
+    the kept region of the last step (a disc of 100 px) and the agent, and
+    the coarse (4x) unexplored mask around it, one component, which the
+    labelling's 48 sweeps do not cross."""
+    yy, xx = np.mgrid[:size, :size]
+    masks, seeds, coarse = [], [], []
+    for _ in range(lanes):
+        cy, cx = gen.integers(size // 3, 2 * size // 3, 2)
+        d2 = (yy - cy) ** 2 + (xx - cx) ** 2
+        explored = (d2 < 120 ** 2) & (gen.random((size, size)) < 0.9)
+        masks.append(explored)
+        seeds.append(explored & (d2 < 100 ** 2))
+        coarse.append(~(explored | (d2 < 130 ** 2)).reshape(size // 4, 4, size // 4, 4).all(axis=(1, 3)))
+    return (torch.from_numpy(np.stack(masks)).to(DEV), torch.from_numpy(np.stack(seeds)).to(DEV),
+            torch.from_numpy(np.stack(coarse)).to(DEV))
+
+
+def cluster_barrier_ms(lanes: int) -> float:
+    """The card's cluster barrier: ``lanes`` clusters of the sweep kernels'
+    shape (8 CTAs of 1024 threads) that only wait on it (``csrc/sweeps.cu``,
+    ``vlfm_cluster_sync``), timed at 1,000 and 5,000 barriers, over the
+    4,000 between them. The floor of one sweep, which does that and more."""
+    from vlfm_tpu_torch.kernels.build import load_library
+
+    lib = load_library()
+
+    def run(iters):
+        err = lib.vlfm_cluster_sync(lanes, iters, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the cluster barrier kernel failed: cudaError {err}")
+
+    return (_median_ms(lambda: run(5000), reps=20) - _median_ms(lambda: run(1000), reps=20)) / 4000
+
+
+def corridor_sweep_ms() -> float:
+    """One sweep of the flood kernel with next to no work: a (1, 8, 31)
+    flood along a corridor that folds three times, one grid row a CTA, less
+    a flood that stops at its first sweep, over the sweeps between them (the
+    barrier, the block-wide OR, the flag's store and read through
+    distributed shared memory, the loop). The kernel's own cost, not a
+    bound."""
+    snake = torch.zeros((1, 8, 31), dtype=torch.bool)
+    snake[0, ::2] = True
+    snake[0, 1, 30] = snake[0, 3, 0] = snake[0, 5, 30] = True
+    seed = torch.zeros_like(snake)
+    seed[0, 0, 0] = True
+    m, s, none = snake.to(DEV), seed.to(DEV), torch.zeros_like(snake).to(DEV)
+    reset_counters()
+    check(torch.equal(FL.flood_from_seed(m, s).cpu(), snake), "the corridor did not flood whole")
+    n = counted("map.sweeps")
+    long_ms = _median_ms(lambda: FL.flood_from_seed(m, s))
+    short_ms = _median_ms(lambda: FL.flood_from_seed(m, none))
+    log(f"[sweeps] corridor: {n} sweeps {long_ms:.4f} ms, one sweep {short_ms:.4f} ms")
+    return (long_ms - short_ms) / (n - 1)
+
+
+def phase_sweeps() -> tuple[dict, dict]:
+    """The flood and labelling kernels (csrc/sweeps.cu) at the obstacle
+    map's 1344 x 1344 and its coarse 336 x 336 grid, 1 and 8 lanes: bits
+    against the plain loops on the card, device ms (events) and wall ms
+    against the plain loops' wall ms, the sweeps the batch ran, and the
+    bound: the larger of the bytes once over HBM's rate and the sweeps times
+    the card's cluster barrier at as many clusters as lanes."""
+    gen = np.random.default_rng(11)
+    corridor = corridor_sweep_ms()
+    log(f"[sweeps] the flood kernel's sweep with next to no work (its own cost) {corridor * 1e3:.2f} us")
+    out = {}
+    for lanes in (1, 8):
+        barrier = cluster_barrier_ms(lanes)
+        log(f"[sweeps] the cluster barrier alone, {lanes} clusters of 8 x 1024 threads: {barrier * 1e3:.3f} us")
+        mask, seed, coarse = sweep_case(lanes, 1344, gen)
+        for name, fn, ref, n_bytes in (
+                ("flood", lambda: FL.flood_from_seed(mask, seed), lambda: FL.flood_from_seed_ref(mask, seed),
+                 3 * mask.numel()),
+                ("label", lambda: FL.label_components(coarse, 48), lambda: FL.label_components_ref(coarse, 48),
+                 5 * coarse.numel())):
+            reset_counters()
+            got = fn()
+            torch.cuda.synchronize()
+            sweeps = counted("map.sweeps")
+            check(counted(f"{name}.launches") == 1, f"{name}: one launch a call, counted on the device")
+            reset_counters()
+            want = ref()
+            plain_sweeps = counted("map.sweeps")
+            check(torch.equal(got, want), f"{name} kernel differs from the plain loop at {lanes} lanes")
+            ms, wall, plain = _median_ms(fn), wall_ms(fn), wall_ms(ref, reps=5, warmup=1)
+            # a sweep's cost at this shape: the same call cut at 16 sweeps
+            if name == "flood":
+                ms16 = _median_ms(lambda: FL.flood_from_seed(mask, seed, max_iters=16))
+            else:
+                ms16 = _median_ms(lambda: FL.label_components(coarse, 16))
+            per_sweep = (ms - ms16) / (sweeps - 16) if sweeps > 16 else float("nan")
+            t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+            b_ms, b_by = max((t_bytes, "bytes"), (sweeps * barrier, "sweeps x barrier"))
+            shape = tuple((mask if name == "flood" else coarse).shape)
+            log(f"[sweeps] {name} {shape}: {sweeps} sweeps (plain loop {plain_sweeps}), kernel {ms:.4f} ms device "
+                f"({ms16:.4f} at 16 sweeps, {per_sweep * 1e3:.2f} us a sweep), {wall:.4f} ms wall; plain loop "
+                f"{plain:.4f} ms wall; bound {b_ms:.4f} ms ({b_by}; bytes {t_bytes:.4f} ms); bits equal")
+            out[(name, lanes)] = dict(max_abs_err=0.0, ms=ms, wall_ms=wall, plain_ms=plain, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None, sweeps=sweeps, plain_sweeps=plain_sweeps,
+                                      sweep_us=per_sweep * 1e3, barrier_us=barrier * 1e3,
+                                      corridor_sweep_us=corridor * 1e3)
+    return out[("flood", 8)], out[("label", 8)]
 
 
 # --- phase 6 -----------------------------------------------------------------
@@ -1905,6 +2013,7 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"))
+    sweep_launches = dict(flood=counted("flood.launches"), label=counted("label.launches"))
     modes = torch.stack([r["info"].mode for r in record]).cpu()
     n_front = torch.stack([r["info"].num_frontiers for r in record]).cpu()
     actions = torch.stack([r["info"].action for r in record]).cpu()
@@ -1930,7 +2039,10 @@ def phase_batched_episodes(engine: PerceptionEngine, spec, cfg, smi: str) -> dic
     check(any(e.path_length > 0 for e in envs), "no lane of the batched episodes moved")
     check(launches == dict(layer_norm=EPISODE_STEPS * LAUNCHES_IMAGE, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE),
           "batched episodes: K1 and K3 launch counts")
-    launches = with_fused(launches, "episodes", EPISODE_STEPS * FUSED_IMAGE)
+    launches = {**with_fused(launches, "episodes", EPISODE_STEPS * FUSED_IMAGE), **sweep_launches}
+    log(f"[episodes] flood and labelling kernels: {sweep_launches} launches")
+    check(sweep_launches == dict(flood=EPISODE_STEPS, label=EPISODE_STEPS),
+          "batched episodes: one flood and one labelling launch a step")
     init = cfg.num_init_turns
     check(bool((modes[:init] == ITM.MODE_INITIALIZE).all() and (modes[init] != ITM.MODE_INITIALIZE).all()),
           f"a lane did not leave INITIALIZE after exactly {init} steps")
@@ -2117,6 +2229,7 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
     wall = time.perf_counter() - t0
     launches = dict(layer_norm=counted("K1.launches"), attention=counted("K3.launches"),
                     mbconv_chain=counted("K2.launches"))
+    sweep_launches = dict(flood=counted("flood.launches"), label=counted("label.launches"))
     frames = [int(f) for f in counter.frames]
     per_pass = chain_launches(sam.cfg.tinyvit)
     passes = [-(-f // SAM_CAPACITY) for f in frames]
@@ -2132,7 +2245,11 @@ def phase_full_stack(engine: PerceptionEngine, det, sam, spec, recycled: dict, s
         f"K2 {launches['mbconv_chain']} (expect {per_pass * sum(passes)})")
     check(launches == dict(layer_norm=EPISODE_STEPS * ln_step, attention=EPISODE_STEPS * ATTN_LAUNCHES_IMAGE,
                            mbconv_chain=per_pass * sum(passes)), "full stack: K1, K3 and K2 launch counts")
-    launches = with_fused(launches, "full-stack", EPISODE_STEPS * FUSED_STEP)
+    launches = {**with_fused(launches, "full-stack", EPISODE_STEPS * FUSED_STEP), **sweep_launches}
+    log(f"[full-stack] flood and labelling kernels: {sweep_launches} launches, counted on the device (replays "
+        f"included)")
+    check(sweep_launches == dict(flood=EPISODE_STEPS, label=EPISODE_STEPS),
+          "full stack: one flood and one labelling launch a dispatch")
     check(len(frames) == EPISODE_STEPS and sum(frames) > 0, "full stack: no frame detected")
     loop = float(np.median(loop_ms[1:]))
     log(f"[full-stack] the closed loop (fill the pinned buffer, the fused dispatch, its read back, the {b} "
@@ -3645,7 +3762,8 @@ def main() -> None:
     lap("2-3 K1, K3")
     phase_tiny_model()
     phase_tiny_obstacle_map()
-    lap("4-5 tiny ITM, tiny map")
+    flood, label = phase_sweeps()
+    lap("4-5 tiny ITM, tiny map, sweep kernels")
 
     cfg, spec, engine, views = build_main_path()
     n_params = sum(p.numel() for p in engine.itm.module.parameters())
@@ -3735,6 +3853,8 @@ def main() -> None:
     check(episodes_run["layer_norm"] > 0 and episodes_run["attention"] > 0, "the decision step launched no K1 or K3")
     check(all(full_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the full-stack step launched no K1, K2 or K3")
+    check(all(r[k] > 0 for r in (episodes_run, full_stack_run) for k in ("flood", "label")),
+          "the decision step or the full-stack step launched no flood or labelling kernel")
     check(veto_run["layer_norm"] > 0 and veto_run["attention"] > 0, "the veto launched no K1 or K3")
     check(all(vqa_stack_run[k] > 0 for k in ("layer_norm", "attention", "mbconv_chain")),
           "the full stack with the veto launched no K1, K2 or K3")
@@ -3783,6 +3903,13 @@ def main() -> None:
                            "tensor_parallel_itm": tp_run["attention"]}, k3),
             kernel_record("deform_gather", "vlfm_tpu/ops/deform_gather.py:85",
                           {"gdino_detection": gdino_run["deform_gather"]}, k4),
+            # replace no TPU kernel: JAX runs both loops as lax.while_loop over jnp
+            *({**kernel_record(name, "none", {p: episodes_run[name] if p == "decision_step" else
+                                              full_stack_run[name] for p in ("decision_step", "full_stack_step")},
+                               timed), "source": "vlfm_tpu_torch/csrc/sweeps.cu",
+               **{k: timed[k] for k in ("wall_ms", "sweeps", "plain_sweeps", "sweep_us", "barrier_us",
+                                        "corridor_sweep_us")}}
+              for name, timed in (("flood", flood), ("label", label))),
         ]
     }
     print(json.dumps(record), flush=True)

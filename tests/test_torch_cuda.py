@@ -1084,6 +1084,315 @@ def test_every_sync_of_a_dispatch_lies_in_a_wait_span(dev, use_vqa):
     assert inside, "no sync inside the dispatch"
     assert [site for t, site in inside if not within(t, waits)] == []
     assert len(inside) == len(waits)
-    assert {r.name for r in waits} >= {"vlfm.wait.sam_gate", "vlfm.wait.flood"}
+    # the flood and the labelling converge on the card (csrc/sweeps.cu): no wait of theirs
+    assert {r.name for r in waits} >= {"vlfm.wait.sam_gate"}
+    assert not {r.name for r in waits} & {"vlfm.wait.flood", "vlfm.wait.label"}
     if use_vqa:
         assert "vlfm.veto" in {r.name for r in recs}
+
+
+# --- the sweep kernels (csrc/sweeps.cu) and the graphed policy step -------------
+
+def _lane_sweeps(step, cur, cap):
+    """Sweeps one lane runs from ``cur`` under ``step``: one more than the
+    sweeps that changed it, at most ``cap``."""
+    n = 0
+    while n < cap:
+        nxt = step(cur)
+        n += 1
+        if torch.equal(nxt, cur):
+            break
+        cur = nxt
+    return n
+
+
+def _flood_lanes(lanes, size, rng):
+    """(lanes, size, size) bool masks and seeds: a serpentine corridor
+    longer than the cap (lane 0), rooms of scattered walls of different
+    sizes, each seeded inside (they converge at different sweeps), and a
+    seed outside its mask (the last lane: nothing to flood)."""
+    mask = np.zeros((lanes, size, size), bool)
+    seed = np.zeros_like(mask)
+    mask[0, 2:-2:4, 2:-2] = True
+    for k, r in enumerate(range(2, size - 6, 4)):
+        mask[0, r:r + 5, (size - 4) if k % 2 == 0 else 2] = True
+    seed[0, 2, 2] = True
+    for lane in range(1, lanes):
+        n = int(rng.integers(20, 180))
+        r, c = rng.integers(0, size - n, 2)
+        mask[lane, r:r + n, c:c + n] = rng.random((n, n)) < 0.8
+        seed[lane, r + n // 2, c + n // 2] = True
+    if lanes > 1:
+        seed[-1] &= ~mask[-1]
+    return torch.from_numpy(mask), torch.from_numpy(seed)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("words", [False, True], ids=["bool", "words"])
+def test_flood_kernel_equals_the_plain_loop_bit_for_bit(dev, lanes, words):
+    """At the obstacle map's 1344 x 1344 (a multiple of 32, so the flood
+    rolls round the grid's edges): the kernel's flood equals the plain
+    loop's, run on the bool masks or (``words``) as the bit-packed loop on
+    their words; the device's ``map.sweeps`` is the most sweeps any lane ran
+    (one more than its sweeps that changed it, at most max_iters rounded up
+    to a check), never above the plain loop's count; one launch, counted on
+    the device, and no host read."""
+    from vlfm_tpu_torch.ops import bitpack as BP
+    from vlfm_tpu_torch.ops import flood as FL
+
+    mask, seed = _flood_lanes(lanes, 1344, np.random.default_rng(lanes))
+    max_iters, check = 200, 16
+    cap = FL.sweep_cap(max_iters, check)
+    mp, sp = BP.pack_cols(mask), BP.pack_cols(seed)
+    reset_counters()
+    if words:
+        want = BP.unpack_cols(BP.flood_packed(mp, sp, max_iters, check), 1344)
+    else:
+        want = FL.flood_from_seed(mask, seed, max_iters, check)
+    plain_sweeps = counted("map.sweeps")
+    m_d, s_d = mask.to(dev), seed.to(dev)
+    FL.flood_from_seed(m_d, s_d, max_iters, check)  # first launch: the library and the counters made
+    torch.cuda.synchronize()
+    reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = FL.flood_from_seed(m_d, s_d, max_iters, check)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got.cpu(), want)
+    ran = [_lane_sweeps(lambda c, m=mp[i]: BP.dilate8_packed(c) & m, sp[i] & mp[i], cap) for i in range(lanes)]
+    assert ran[0] == cap  # the corridor is longer than the cap
+    if lanes > 1:
+        assert ran[-1] == 1 and len(set(ran)) > 2
+    assert counted("flood.launches") == 1
+    assert counted("map.sweeps") == max(ran) <= plain_sweeps
+
+
+def test_flood_kernel_on_unaligned_widths_keeps_the_grids_edges(dev):
+    """A width that is not a multiple of 32 floods as the unpacked loop
+    does: nothing rolls round the edges."""
+    from vlfm_tpu_torch.ops import flood as FL
+
+    rng = np.random.default_rng(3)
+    for shape in ((3, 100, 77), (2, 5, 33), (1, 64, 31)):
+        mask = torch.from_numpy(rng.random(shape) < 0.7)
+        seed = torch.zeros_like(mask)
+        seed[:, 0, 0] = seed[:, -1, -1] = True
+        want = FL.flood_from_seed(mask, seed, max_iters=64)
+        assert torch.equal(FL.flood_from_seed(mask.to(dev), seed.to(dev), max_iters=64).cpu(), want), shape
+
+
+def test_labelling_kernel_equals_the_plain_loop_bit_for_bit(dev):
+    """At the coarse frontier grid (8, 336, 336) and max_iters 48: lanes of
+    percolating clusters stop at the cap, small blobs converge early, an
+    empty lane after one sweep; labels bit for bit, the device's sweeps the
+    lanes' most."""
+    from vlfm_tpu_torch.ops import flood as FL
+
+    rng = np.random.default_rng(5)
+    mask = torch.from_numpy(rng.random((8, 336, 336)) < 0.6)
+    mask[1:4] = torch.from_numpy(rng.random((3, 336, 336)) < 0.2)
+    mask[7] = False
+    reset_counters()
+    want = FL.label_components(mask, 48)
+    plain_sweeps = counted("map.sweeps")
+    m_d = mask.to(dev)
+    FL.label_components(m_d, 48)
+    torch.cuda.synchronize()
+    reset_counters()
+    got = FL.label_components(m_d, 48)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    big = torch.iinfo(torch.int32).max
+
+    def sweep(lab, m):
+        return torch.where(m, torch.minimum(lab, FL._min_label_step(lab[None])[0]), big)
+
+    idx = torch.arange(336 * 336, dtype=torch.int32).reshape(336, 336)
+    ran = [_lane_sweeps(lambda c, m=mask[i]: sweep(c, m), torch.where(mask[i], idx, big), 48) for i in range(8)]
+    assert ran[0] == 48 and ran[7] == 1 and min(ran[1:4]) < 48
+    assert counted("label.launches") == 1
+    assert counted("map.sweeps") == max(ran) == 48 <= plain_sweeps
+
+
+def test_sweep_kernels_refuse_a_plan_they_do_not_share(dev):
+    from vlfm_tpu_torch.ops import flood as FL
+
+    m = torch.zeros((1, 64, 64), dtype=torch.bool, device=dev)
+    out = torch.empty_like(m)
+    lib, raw_stream = FL._library()
+    counts = FL._counts(dev, "flood.launches")
+    rows_per, smem = FL.sweep_plan(64, 8, 3)
+    args = (m.data_ptr(), m.data_ptr(), out.data_ptr(), 1, 1, 64, 64, 16)
+    assert lib.vlfm_flood(*args, rows_per, smem + 4, *counts, raw_stream(0)) != 0
+    assert lib.vlfm_flood(*args, rows_per + 1, smem, *counts, raw_stream(0)) != 0
+    assert lib.vlfm_flood(*args, rows_per, smem, *counts, raw_stream(0)) == 0
+    with pytest.raises(TypeError):
+        FL.label_components(m.to(torch.uint8), 8)
+    with pytest.raises(ValueError):
+        FL.flood_from_seed(m, m.cpu())
+
+
+def _tiny_policy(dev, lanes=2):
+    cfg = TCONFIG.VLFMConfig(camera=TCONFIG.CameraConfig(height=48, width=64), max_frontiers=16,
+                             max_frontier_cells=256, object_map_slots=8, object_map_points_per_slot=128,
+                             max_detections_per_frame=4)
+    spec = GridSpec2D(512, 20, 160)
+    envs = [ENV.FakeObjectNavEnv(ENV.open_room_plan(seed=s), ENV.EnvConfig(width=64, height=48))
+            for s in range(lanes)]
+    return cfg, spec, envs
+
+
+def _policy_step(cfg, spec):
+    from vlfm_tpu_torch.runner.full_stack import write_into
+
+    def run(state, inputs):
+        reset, obs, cos, masks, valid, keys = inputs[0], ITM.Observation(*inputs[1:5]), *inputs[5:]
+        new = ITM.reset_lanes(state, reset)
+        action, info, new = ITM.step(new, obs, cos, masks, valid, keys, pointnav="greedy", spec=spec, cfg=cfg)
+        write_into(state, new)
+        return action, info
+    return run
+
+
+def _policy_inputs(envs, cfg, dev, k, reset):
+    from vlfm_tpu_torch.runner.episode_driver import observation, step_keys
+
+    obs = [e.reset() if k == 0 or reset else e.step(ENV.TURN_LEFT) for e in envs]
+    b = len(envs)
+    depth = torch.from_numpy(np.stack([o["depth"] for o in obs])).to(dev)
+    xy = torch.from_numpy(np.stack([o["robot_xy"] for o in obs]).astype(np.float32)).to(dev)
+    heading = torch.tensor([o["heading"] for o in obs], dtype=torch.float32, device=dev)
+    o = observation(depth, xy, heading, cfg)
+    keys = step_keys(torch.arange(b, device=dev), torch.full((b,), k, device=dev))
+    masks = torch.zeros((b, cfg.max_detections_per_frame, 48, 64), dtype=torch.bool, device=dev)
+    masks[:, 0, 20:30, 30:40] = True
+    valid = torch.zeros((b, cfg.max_detections_per_frame), dtype=torch.bool, device=dev)
+    valid[:, 0] = k % 3 == 2
+    cos = torch.full((b, cfg.value_channels), 0.1 + 0.01 * k, device=dev)
+    return (torch.tensor([reset] * b, device=dev), *o, cos, masks, valid, keys)
+
+
+def test_step_graphs_capture_per_state_and_never_replay_a_dead_one(dev):
+    """The first call is eager, the next on the same state captures, then
+    replays: each result equals the eager step on a twin state, bit for bit.
+    A new state captures anew; the first state's capture still replays; once
+    it died it is dropped and never replayed. A replay makes no host sync."""
+    import gc
+
+    from vlfm_tpu_torch.runner.full_stack import StepGraphs
+
+    cfg, spec, envs = _tiny_policy(dev)
+    run = _policy_step(cfg, spec)
+    graphs = StepGraphs(run)
+    state, twin = (ITM.create_state(spec, cfg, batch=2, device=dev) for _ in range(2))
+
+    def both(state, twin, k, reset=False):
+        inputs = _policy_inputs(envs, cfg, dev, k, reset)
+        got = graphs(state, inputs)
+        want = run(twin, inputs)
+        assert torch.equal(got[0], want[0]) and all(torch.equal(a, b) for a, b in zip(got[1], want[1]))
+        flat = lambda s: [t for f in s for t in (f if isinstance(f, tuple) else (f,))]  # noqa: E731
+        assert all(torch.equal(a, b) for a, b in zip(flat(state), flat(twin)))
+
+    reset_counters()
+    for k in range(4):
+        both(state, twin, k, reset=k == 2)
+    assert (counted("step.eager"), counted("step.graph_captures"), counted("step.graph_replays")) == (1, 1, 2)
+    # the kernels count on the device: each of the 4 calls ran them once (a capture by its replay), as did the twin
+    assert counted("flood.launches") == counted("label.launches") == 8
+    inputs = _policy_inputs(envs, cfg, dev, 4, False)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        graphs(state, inputs)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    run(twin, inputs)
+    other, other_twin = (ITM.create_state(spec, cfg, batch=2, device=dev) for _ in range(2))
+    both(other, other_twin, 5, reset=True)
+    assert counted("step.graph_captures") == 2 and len(graphs.graphs) == 2
+    both(state, twin, 6)
+    assert counted("step.graph_replays") == 4
+    del state
+    gc.collect()
+    fresh, fresh_twin = (ITM.create_state(spec, cfg, batch=2, device=dev) for _ in range(2))
+    both(fresh, fresh_twin, 7, reset=True)
+    assert counted("step.graph_captures") == 3 and counted("step.graph_replays") == 4
+    assert len(graphs.graphs) == 2 and all(g.alive() for g in graphs.graphs)
+
+
+def _bench_stack(dev, lanes):
+    """The benchmark's HM3D configuration at full width (random weights from
+    seed 7), its replay pool and a dispatch layout of ``lanes``."""
+    import json
+    from pathlib import Path
+
+    from benchmark import stack, traffic
+    from benchmark.drivers.dispatch import _layout
+
+    root = Path(__file__).resolve().parent.parent
+    config = json.loads((root / "benchmark/configs/vlfm-hm3d.json").read_text())
+    mix = json.loads((root / f"benchmark/workloads/replay-b{lanes}.json").read_text())
+    cfg, spec = stack.vlfm_config(config, "program")
+    models = {role: stack.build_model(s, role, 7, "program", dev) for role, s in config["models"].items()}
+    perception = FullStackPerception(cfg, itm=models["itm"], detector=models["detector"], sam=models["sam"],
+                                     det_threshold=cfg.non_coco_threshold, device=dev)
+    layout = _layout(PK, lanes, cfg.camera.height, cfg.camera.width)
+    return cfg, spec, models["pointnav"], perception, layout, mix, traffic.replay_pool(mix, 7), traffic
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_graphed_dispatch_equals_the_eager_step_at_the_cells_shapes(dev, lanes):
+    """24 decisions of the benchmark's replay pool with its staggered lane
+    resets: the packed fused dispatch (eager, then a capture, then 22
+    replays) against perception and ``itm.step`` called eagerly on a twin
+    state: the same outputs and every state leaf bit for bit at every
+    decision, and a peak of allocated memory within 1 %."""
+    from vlfm_tpu_torch.runner.episode_driver import observation, pack_outputs, step_keys
+    from vlfm_tpu_torch.runner.full_stack import on_dispatch_stream
+
+    cfg, spec, pointnav, perception, layout, mix, pool, traffic = _bench_stack(dev, lanes)
+    h, w = cfg.camera.height, cfg.camera.width
+    buf = torch.empty(layout.total, dtype=torch.uint8, pin_memory=True)
+    views = PK.pack_views(buf.numpy(), layout)
+    flat = lambda s: [t for f in s for t in (f if isinstance(f, tuple) else (f,))]  # noqa: E731
+
+    def decisions(one):
+        sched = traffic.LaneSchedule(lanes, len(pool), mix["steps"], mix["stagger"])
+        state = ITM.create_state(spec, cfg, batch=lanes, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(24):
+            for lane, (e, f, r) in enumerate(sched.current()):
+                ep = pool[e]
+                views["depth"][lane], views["rgb"][lane] = ep["depth"][f], ep["rgb"][f]
+                views["heading"][lane], views["xy"][lane] = ep["heading"][f], ep["xy"][f]
+                views["seeds"][lane], views["steps"][lane], views["reset"][lane] = ep["seed"], f, r
+            out, state = one(state)
+            yield out.cpu(), [t.cpu() for t in flat(state)]
+            sched.advance()
+        yield torch.cuda.max_memory_allocated()
+
+    def eager(state):
+        f = PK.unpack_device(layout, buf.to(dev))
+        cos, masks, valid = perception._perceive(f["rgb"], "toilet", (h, w))
+        state = ITM.reset_lanes(state, f["reset"].to(torch.bool))
+        action, info, state = ITM.step(state, observation(f["depth"], f["xy"], f["heading"], cfg),
+                                       cos[:, : cfg.value_channels], masks, valid, step_keys(f["seeds"], f["steps"]),
+                                       pointnav=pointnav, spec=spec, cfg=cfg)
+        return pack_outputs(action, info), state
+
+    def eager_on_the_dispatch_stream(state):  # one stream, so one cuBLAS workspace, as the dispatch has
+        with on_dispatch_stream(dev):
+            return eager(state)
+
+    step = perception.make_fused_step(pointnav, spec, cfg, "toilet", layout=layout)
+    want = list(decisions(eager_on_the_dispatch_stream))
+    reset_counters()
+    got = list(decisions(lambda s: step(s, None, buf)))
+    for k, ((out_g, state_g), (out_e, state_e)) in enumerate(zip(got[:-1], want[:-1])):
+        assert torch.equal(out_g, out_e), k
+        assert all(torch.equal(a, b) for a, b in zip(state_g, state_e)), k
+    assert (counted("step.eager"), counted("step.graph_captures"), counted("step.graph_replays")) == (1, 1, 22)
+    assert counted("flood.launches") == counted("label.launches") == 24
+    assert abs(got[-1] - want[-1]) <= 0.01 * want[-1], (got[-1], want[-1])

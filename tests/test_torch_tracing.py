@@ -169,6 +169,23 @@ def test_map_sweeps_counts_the_labelling_loops_sweeps():
     assert P.counters()["map.sweeps"] == 4 * (math.ceil(39 / 4) + 1)
 
 
+def test_a_device_counter_adds_into_counters_and_reset_clears_it():
+    """A kernel adds into a counter's accumulator on its device (here a CPU
+    tensor stands in for the card's); ``counters()`` adds it to the host
+    count of the same name, and ``reset_counters()`` zeroes it in place."""
+    P.reset_counters()
+    acc = P.device_counter("test.device_sweeps", "cpu")
+    assert acc.dtype == torch.int64 and acc.shape == (1,) and P.device_counter("test.device_sweeps", "cpu") is acc
+    assert "test.device_sweeps" not in P.counters()
+    acc += 5
+    P.count("test.device_sweeps", 2)
+    acc += 3
+    assert P.counters()["test.device_sweeps"] == 10
+    P.reset_counters()
+    assert "test.device_sweeps" not in P.counters() and int(acc) == 0
+    assert P.device_counter("test.device_sweeps", "cpu") is acc  # the same address after a reset
+
+
 @pytest.fixture(scope="module")
 def sam():
     return SAM.init_random(SamConfig.tiny_mobile_sam(), seed=0, device="cpu")

@@ -119,4 +119,10 @@ def load_library() -> ctypes.CDLL:
     lib.vlfm_deform_gather.argtypes = [p, p, p, p, ctypes.POINTER(i), i, i, i, i, i, i, i, i, i,
                                        i, i, i, i, i, i, i, i, p]
     lib.vlfm_deform_gather.restype = i
+    lib.vlfm_flood.argtypes = [p, p, p, i, i, i, i, i, i, i, p, p, p, p]
+    lib.vlfm_flood.restype = i
+    lib.vlfm_label.argtypes = [p, p, i, i, i, i, i, i, p, p, p, p]
+    lib.vlfm_label.restype = i
+    lib.vlfm_cluster_sync.argtypes = [i, i, p]
+    lib.vlfm_cluster_sync.restype = i
     return lib

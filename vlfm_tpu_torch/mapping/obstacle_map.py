@@ -21,9 +21,10 @@ and returns a new state whose ``explored`` and frontiers are new tensors.
 
 The state is batch-first: B episodes ("lanes"), each with its own grids,
 pose, depth and prune flag, updated by one call, as JAX's vmapped step
-updates them. One episode is B = 1. Nothing is read back to the host but
-the flood's and the labelling's convergence checks, one read per check for
-all lanes.
+updates them. One episode is B = 1. On the card nothing is read back to
+the host: the flood and the frontiers' labelling run as kernels
+(``ops/flood.py``). On the CPU their plain loops read one convergence check
+per few sweeps for all lanes.
 """
 
 from __future__ import annotations

@@ -118,7 +118,9 @@ def random_bits(key: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 
 def _f32(x: float, device) -> torch.Tensor:
-    return torch.tensor(x, dtype=torch.float32, device=device)
+    """``x`` rounded to f32, as a 0-d tensor on ``device``: a fill, not a
+    copy from host memory, so a CUDA graph can capture it."""
+    return torch.full((), x, dtype=torch.float32, device=device)
 
 
 def uniform(key: torch.Tensor, shape: tuple[int, ...], minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:

@@ -11,8 +11,10 @@ advances every lane's state: the obstacle, value and object maps, the
 frontier choice with its acyclic memory, the V1 frontier cache and the
 PointNav recurrence. Where JAX vmaps a per-episode step, every state here
 carries a leading lane axis, and each per-lane choice is a ``torch.where``
-over the lanes; one episode is B = 1. Nothing in ``step`` reads a device
-value on the host but the obstacle map's sweep-loop checks.
+over the lanes; one episode is B = 1. On the card nothing in ``step`` reads
+a device value on the host (the obstacle map's sweep loops run as kernels),
+so a CUDA graph can hold it (``runner/full_stack.StepGraphs``); on the CPU
+the sweep loops' checks read the device.
 
 Mode machine (base_objectnav_policy.py:130-138): INITIALIZE (spin
 ``num_init_turns`` x TURN_LEFT) -> EXPLORE (best frontier) -> NAVIGATE

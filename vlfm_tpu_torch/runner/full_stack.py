@@ -12,8 +12,10 @@ random weights it runs every seam and measures the stack's throughput.
 - ``FullStackPerception.batch``: one batched call per model family for a
   (B, H, W, 3) frame batch.
 - ``FullStackPerception.make_fused_step``: the farm's dispatch over its lanes
-  (unpack, lane resets, perception, keys, one batched ``step``) behind one
-  host-to-device copy of a packed buffer and one (B, 4) read back.
+  (unpack, perception, keys, lane resets and one batched ``step``) behind
+  one host-to-device copy of a packed buffer and one (B, 4) read back. On
+  the card it replays the lane reset and the step as one CUDA graph
+  (``StepGraphs``).
 - ``FullStackPerception.__call__``: one frame, with the all-ones-depth
   trigger of monocular depth (ZoeDepth) for the object map.
 - ``run_full_stack_episode``: one episode (B = 1) with model perception.
@@ -25,9 +27,11 @@ either encoder (``SamConfig()`` is sam-vit-base's ViT-det).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import time
-from typing import Callable, Optional, Tuple
+import weakref
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -57,7 +61,7 @@ from vlfm_tpu_torch.runner.episode_driver import (
     step_keys,
 )
 from vlfm_tpu_torch.utils.measurements import TraveledStairs
-from vlfm_tpu_torch.utils.profiling import span
+from vlfm_tpu_torch.utils.profiling import count, span
 
 
 def tiny_sam_config() -> SamConfig:
@@ -72,6 +76,148 @@ def tiny_sam_config() -> SamConfig:
         ),
         pe_dim=8,
     )
+
+
+def _leaves(tree, out: list) -> list:
+    """The tensors of a NamedTuple tree, in field order, appended to ``out``."""
+    for v in tree:
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        else:
+            _leaves(v, out)
+    return out
+
+
+def write_into(state, new) -> None:
+    """Copy each tensor of the state ``new`` into the tensor of ``state`` in
+    its place, where they are not the same tensor, so ``state`` holds the new
+    state. A new tensor that shares memory with a tensor of ``state`` is
+    copied out first, so no write lands on what is still to be read."""
+    dsts, srcs = _leaves(state, []), _leaves(new, [])
+    held = {d.untyped_storage().data_ptr() for d in dsts}
+    pairs = [(d, s.clone() if s.untyped_storage().data_ptr() in held else s)
+             for d, s in zip(dsts, srcs) if s is not d]
+    for d, s in pairs:
+        d.copy_(s)
+
+
+_streams: dict = {}
+
+
+def dispatch_stream(device: torch.device) -> "torch.cuda.Stream":
+    """The stream the fused dispatch and its graphs run on, one per card for
+    the process. A capture needs a stream other than the default one, and
+    cuBLAS keeps a workspace for each stream it runs on (tens of MiB on
+    Hopper): the dispatch's work all on one stream keeps one workspace."""
+    stream = _streams.get(device)
+    if stream is None:
+        stream = _streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+@contextlib.contextmanager
+def on_dispatch_stream(device: torch.device):
+    """The block on ``dispatch_stream(device)``, ordered after the current
+    stream's work and before its next; as it is on a CPU device or on that
+    stream already."""
+    if device.type != "cuda":
+        yield
+        return
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    main, side = torch.cuda.current_stream(device), dispatch_stream(device)
+    if main == side:
+        yield
+        return
+    side.wait_stream(main)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        main.wait_stream(side)
+
+
+class _Graph:
+    """One capture: the graph, its static inputs and outputs, and weak
+    references to the state's tensors it was captured on."""
+
+    def __init__(self, graph, sig, inputs, outputs, leaves):
+        self.graph, self.sig, self.inputs, self.outputs = graph, sig, inputs, outputs
+        self.refs = [weakref.ref(t) for t in leaves]
+
+    def alive(self) -> bool:
+        return all(r() is not None for r in self.refs)
+
+    def holds(self, sig, leaves) -> bool:
+        return sig == self.sig and len(leaves) == len(self.refs) and all(
+            r() is t for r, t in zip(self.refs, leaves))
+
+
+class StepGraphs:
+    """``run(state, inputs)`` (the dispatch's lane reset and policy step,
+    which writes the new state into ``state`` and returns its outputs) as
+    CUDA graphs, one per state and input shapes.
+
+    A CPU state runs ``run`` eagerly (``step.eager``). On the card the
+    first call at a set of input shapes and dtypes runs eagerly on
+    ``dispatch_stream`` (``step.eager``), which warms its libraries' handles
+    there, and captures go on that stream; a later call at those shapes on
+    the very state tensors of a live capture copies its inputs into the
+    capture's and replays it inside a ``vlfm.step`` span
+    (``step.graph_replays``); any other call captures anew on its state and
+    replays (``step.graph_captures``). A capture holds
+    its state by weak reference only: it is never replayed on other tensors
+    or after they died, and it is dropped at the next capture once they
+    died, so a dropped state frees its memory; each live state keeps its
+    capture.
+
+    Replayed outputs are the capture's buffers, overwritten by the next
+    replay. The graph reads the step's weights (PointNav's) where they were
+    at capture: a load into them in place is read, a module given new
+    tensors needs a new dispatch."""
+
+    def __init__(self, run: Callable):
+        self.run = run
+        self.graphs: List[_Graph] = []
+        self.warm: set = set()
+
+    def __call__(self, state, inputs: Tuple[torch.Tensor, ...]):
+        leaves = _leaves(state, [])
+        if not leaves[0].is_cuda:
+            count("step.eager")
+            return self.run(state, inputs)
+        sig = tuple((t.shape, t.dtype, t.device) for t in inputs)
+        g = next((g for g in self.graphs if g.holds(sig, leaves)), None)
+        if g is not None:
+            for dst, src in zip(g.inputs, inputs):
+                dst.copy_(src)
+            with span("vlfm.step"):
+                g.graph.replay()
+            count("step.graph_replays")
+            return g.outputs
+        device = leaves[0].device
+        if sig not in self.warm:
+            with on_dispatch_stream(device):
+                outputs = self.run(state, inputs)
+            self.warm.add(sig)
+            count("step.eager")
+            return outputs
+        # Drop the captures whose state died before capturing, so their
+        # memory is free for this one.
+        self.graphs = [g for g in self.graphs if g.alive()]
+        # The inputs are copied: the caller may keep the tensors it gave.
+        static = tuple(t.clone(memory_format=torch.contiguous_format) for t in inputs)
+        graph = torch.cuda.CUDAGraph()
+        with on_dispatch_stream(device):
+            graph.capture_begin()
+            try:
+                outputs = self.run(state, static)
+            finally:
+                graph.capture_end()
+        graph.replay()
+        self.graphs.append(_Graph(graph, sig, static, outputs, leaves))
+        count("step.graph_captures")
+        return outputs
 
 
 class FullStackPerception:
@@ -203,11 +349,10 @@ class FullStackPerception:
     def make_fused_step(self, pointnav, spec: GridSpec2D, cfg: VLFMConfig, target: str, version: str = "v2",
                         layout: Optional[packing.Layout] = None):
         """The farm's dispatch as one call: unpack, dequantise and
-        upsample depth, reset lanes, ITM cosines from the cached text
+        upsample depth, camera poses, per-lane keys ``fold_in(PRNGKey(seed),
+        step)`` computed on the device, ITM cosines from the cached text
         features, the detection pipeline (with the VQA veto under
-        ``cfg.use_vqa``), camera poses, per-lane keys
-        ``fold_in(PRNGKey(seed), step)`` computed on the device, and one
-        batched ``step``.
+        ``cfg.use_vqa``), then the lane resets and one batched ``step``.
 
         Unpacked, the callable is
             (gstate, fresh, reset_mask, depth, heading, xy, rgb, seeds, steps)
@@ -221,20 +366,32 @@ class FullStackPerception:
         dispatch's ``out``), and ``out`` comes back in one read. The
         unpack is a set of typed views, so both forms compute on the same
         bits. ``fresh`` is JAX's fresh-state argument: ``reset_lanes``
-        starts the reset lanes anew, so it may be None.
+        starts the reset lanes anew, so it may be None. The new state is
+        written into ``gstate``'s tensors, and the ``gstate`` returned is
+        the one given.
 
         u16 depth is dequantised with ``* (1/65535)``; depth or RGB at half
         size is brought to the camera grid on the device (depth bilinearly,
         the masks by resampling SAM's output to the camera grid), so
         ``step`` always sees (H, W). The callable is cached per (target,
-        version, pointnav, spec, cfg, layout); the models are read at each
-        call.
+        version, pointnav, spec, cfg, layout); the perception models are
+        read at each call.
+
+        The lane reset, ``step`` and the write into ``gstate`` go through
+        ``StepGraphs``: on the card, after a first eager call, a call on the
+        state of a live capture at its shapes replays one CUDA graph, which
+        holds no host read (the flood and the labelling run as kernels).
+        There is no switch: a CPU state runs eagerly. On the card the whole
+        call runs on ``dispatch_stream``, ordered after the caller's work
+        on its current stream and before its next.
 
         Each call is a ``vlfm.dispatch`` span whose ``decision`` is the
         callable's call count, with ``vlfm.dispatch.unpack`` (the copy, the
         views, depth brought to the camera grid, the camera poses and the
-        keys), ``vlfm.reset_lanes``, ``vlfm.perceive``, ``vlfm.step`` and,
-        packed, ``vlfm.dispatch.pack`` inside."""
+        keys), ``vlfm.perceive``, ``vlfm.reset_lanes`` and ``vlfm.step``
+        (with their children) on an eager or a capturing call, or one
+        ``vlfm.step`` around a replay, and, packed, ``vlfm.dispatch.pack``
+        inside."""
         key = (target, version, id(pointnav), id(spec), id(cfg), layout)
         if key in self._fused_cache:
             return self._fused_cache[key][0]
@@ -250,33 +407,42 @@ class FullStackPerception:
                 depth = resize_bilinear_hw(depth, h, w)
             return observation(depth, xy, heading, cfg), step_keys(seeds, steps)
 
-        def fused(gstate, reset_mask, obs, rgb, keys):
+        def policy_step(gstate, inputs):
+            """Reset the lanes, step every lane, and write the new state into
+            ``gstate``: (action, info)."""
+            reset, depth, tf, xy, heading, cos, masks, valid, keys = inputs
             with span("vlfm.reset_lanes"):
-                gstate = itm.reset_lanes(gstate, reset_mask)
+                state = itm.reset_lanes(gstate, reset)
+            action, info, state = itm.step(state, itm.Observation(depth, tf, xy, heading), cos, masks, valid, keys,
+                                           pointnav=pointnav, spec=spec, cfg=cfg, version=version)
+            write_into(gstate, state)
+            return action, info
+
+        graphs = StepGraphs(policy_step)
+
+        def fused(gstate, reset_mask, obs, rgb, keys):
             cos, masks, valid = self._perceive(rgb, target, (h, w))
-            action, info, gstate = itm.step(gstate, obs, cos[:, : cfg.value_channels], masks, valid, keys,
-                                            pointnav=pointnav, spec=spec, cfg=cfg, version=version)
-            return action, info, gstate
+            return graphs(gstate, (reset_mask, *obs, cos[:, : cfg.value_channels], masks, valid, keys))
 
         if layout is not None:
             def call(gstate, fresh, packed_u8):
-                with span("vlfm.dispatch", decision=next(calls)):
+                with span("vlfm.dispatch", decision=next(calls)), on_dispatch_stream(device):
                     with span("vlfm.dispatch.unpack"):
                         f = packing.unpack_device(layout, torch.as_tensor(packed_u8).to(device, non_blocking=True))
                         reset = f["reset"].to(torch.bool)
                         obs, keys = camera_inputs(f["depth"], f["heading"], f["xy"], f["seeds"], f["steps"])
-                    action, info, gstate = fused(gstate, reset, obs, f["rgb"], keys)
+                    action, info = fused(gstate, reset, obs, f["rgb"], keys)
                     with span("vlfm.dispatch.pack"):
                         return pack_outputs(action, info), gstate
         else:
             def call(gstate, fresh, reset_mask, depth, heading, xy, rgb, seeds, steps):
-                with span("vlfm.dispatch", decision=next(calls)):
+                with span("vlfm.dispatch", decision=next(calls)), on_dispatch_stream(device):
                     with span("vlfm.dispatch.unpack"):
                         reset, depth, heading, xy, rgb, seeds, steps = (
                             torch.as_tensor(x).to(device) for x in (reset_mask, depth, heading, xy, rgb, seeds, steps))
                         obs, keys = camera_inputs(depth, heading, xy, seeds, steps)
-                    action, info, gstate = fused(gstate, reset.to(torch.bool), obs, rgb, keys)
-                    return action, info.target_detected, info.goal, gstate
+                    action, info = fused(gstate, reset.to(torch.bool), obs, rgb, keys)
+                    return action.clone(), info.target_detected.clone(), info.goal.clone(), gstate
 
         # the entry keeps (pointnav, spec, cfg) alive, so their ids stay unique
         self._fused_cache[key] = (call, (pointnav, spec, cfg))

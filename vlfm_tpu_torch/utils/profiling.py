@@ -25,7 +25,12 @@ The program's own spans and counters live here too:
   ``vlfm.wait.<site>`` span holds one host read of a device value, so its
   duration is the time the host blocked for the device.
 - ``count(name, n=1)``, ``counters()``, ``reset_counters()``: host integers,
-  always counted, such as ``K1.launches`` or ``sam.passes``.
+  always counted, such as ``K1.launches`` or ``sam.passes``;
+  ``device_counter(name, device)``: the counter's int64 accumulator on a
+  device, which a kernel adds into (``map.sweeps`` from the flood and
+  labelling kernels), so a CUDA graph's replays count too. ``counters()``
+  adds each accumulator to its host count: one read a device, only when it
+  is called.
 - ``spans()``, ``reset_spans()`` and ``write_spans(path)`` (a Chrome trace
   of the kept spans and the counters, for Perfetto).
 """
@@ -123,6 +128,7 @@ def time_fn(fn: Callable, *args, iters: int = 5, warmup: int = 1) -> float:
 SPAN_CAPACITY = 1 << 16
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _counters: Dict[str, int] = defaultdict(int)
+_device_counters: Dict[tuple, torch.Tensor] = {}
 
 
 class SpanRecord(NamedTuple):
@@ -255,12 +261,39 @@ def count(name: str, n: int = 1) -> None:
     _counters[name] += n
 
 
+def device_counter(name: str, device) -> torch.Tensor:
+    """The (1,) int64 accumulator of the counter ``name`` on ``device``,
+    made at its first use and kept for the process: a kernel (or a CUDA
+    graph that replays it) adds into it by its address. Its first use must
+    not lie inside a graph capture, which would record its zero fill."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    acc = _device_counters.get((name, dev))
+    if acc is None:
+        if dev.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"the device counter {name!r} is first used inside a graph capture")
+        acc = _device_counters[(name, dev)] = torch.zeros(1, dtype=torch.int64, device=dev)
+    return acc
+
+
 def counters() -> Dict[str, int]:
-    return dict(_counters)
+    """The host counts, each device accumulator added to its name's (one
+    read a device; accumulators that read 0 add no name)."""
+    out = dict(_counters)
+    for (name, _), acc in _device_counters.items():
+        n = int(acc.item())
+        if n:
+            out[name] = out.get(name, 0) + n
+    return out
 
 
 def reset_counters() -> None:
+    """Clear the host counts and zero the device accumulators in place (a
+    graph keeps their addresses)."""
     _counters.clear()
+    for acc in _device_counters.values():
+        acc.zero_()
 
 
 def write_spans(path: str) -> None:
