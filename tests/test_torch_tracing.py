@@ -2,8 +2,9 @@
 on the CPU: off, a tiny fused dispatch records nothing and enters no
 profiler annotation; on, it records the span tree of the layers with one
 root per dispatch; under ``torch.profiler`` each span is an annotation
-stamped on the profiler's clock; the counters count the sweeps and SAM
-passes the code runs; the ring, the exporter and ``run.py --trace-dir``."""
+stamped on the profiler's clock; the counters count the sweeps, SAM
+passes, veto passes and T5 steps the code runs, and the veto's spans lie
+under ``vlfm.veto``; the ring, the exporter and ``run.py --trace-dir``."""
 
 import collections
 import json
@@ -13,6 +14,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
@@ -20,9 +22,11 @@ from torch.profiler import ProfilerActivity, profile
 from vlfm_tpu_torch import config as TCONFIG
 from vlfm_tpu_torch.mapping.grid import GridSpec2D
 from vlfm_tpu_torch.models import pointnav as PN
+from vlfm_tpu_torch.models.blip2_vqa import BLIP2VQA, BLIP2VQAConfig
 from vlfm_tpu_torch.models.sam import SAM, SamConfig
 from vlfm_tpu_torch.ops import flood
 from vlfm_tpu_torch.ops.norms import add_layer_norm, layer_norm
+from vlfm_tpu_torch.parallel.detection_pipeline import VQAVeto
 from vlfm_tpu_torch.policy import itm as ITM
 from vlfm_tpu_torch.runner import fake_env as ENV
 from vlfm_tpu_torch.runner import packing as PK
@@ -220,6 +224,65 @@ def test_an_ungated_sam_call_is_one_pass(sam):
         sam.segment_boxes(imgs, boxes)
     assert P.counters() == {"sam.passes": 1, "sam.frames": 4}
     assert [(r.name, r.attrs) for r in P.spans() if r.name == "vlfm.sam"] == [("vlfm.sam", {"frames": 4})]
+
+
+@pytest.fixture(scope="module")
+def bridge():
+    return BLIP2VQA.init_random(BLIP2VQAConfig.tiny(), seed=0, device="cpu")
+
+
+def _question(text):
+    ids = np.arange(3, 11)
+    return ids, ids != 0
+
+
+@pytest.mark.parametrize("n_valid,capacity", [(0, 3), (1, 3), (5, 3), (6, 3), (5, 4), (5, None)])
+def test_the_veto_counts_its_passes_slots_and_t5_steps(bridge, n_valid, capacity):
+    """``veto.passes`` is ceil(n_valid / capacity) (one batch without a
+    capacity), ``veto.slots`` the passes times the capacity (the clamped
+    last window's included), and each pass's ``generate`` counts 4 decode
+    steps and its rows times the prefix and question."""
+    b, k, h, w = 2, 3, 24, 32
+    rgb = torch.randint(0, 256, (b, h, w, 3), generator=torch.Generator().manual_seed(0), dtype=torch.uint8)
+    masks = torch.zeros(b, k, h, w, dtype=torch.bool)
+    masks[..., 4:12, 6:20] = True
+    valid = (torch.arange(b * k) < n_valid).reshape(b, k)
+    veto = VQAVeto(vqa=bridge.t5, encode_text=_question, yes_token_id=42, slot_capacity=capacity,
+                   image_prefix=lambda x: bridge.image_prefix(bridge.preprocess(x)))
+    P.reset_counters()
+    veto(rgb, masks, valid, "toilet")
+    c = P.counters()
+    passes = 1 if capacity is None else math.ceil(n_valid / capacity)
+    slots = b * k if capacity is None else passes * capacity
+    assert (c.get("veto.passes", 0), c.get("veto.slots", 0)) == (passes, slots)
+    assert c.get("veto.valid_slots") == (None if capacity is None else n_valid)
+    assert c.get("t5.decode_steps", 0) == 4 * passes
+    assert c.get("t5.encoder_tokens", 0) == slots * (bridge.cfg.qformer.num_queries + 8)
+
+
+def test_the_veto_spans_lie_under_vlfm_veto(bridge):
+    """One batched perception call with the veto gated at 2 slots: each
+    pass is a ``vlfm.veto.prefix``, a ``vlfm.t5.encode`` and a
+    ``vlfm.t5.decode`` under the call's one ``vlfm.veto``, which lies
+    under ``vlfm.perceive``."""
+    cfg = TCONFIG.VLFMConfig(camera=TCONFIG.CameraConfig(height=H, width=W), max_detections_per_frame=4,
+                             sam_frame_capacity=1, use_vqa=True, vqa_slot_capacity=2)
+    perception = FullStackPerception(cfg, blip2_vqa=bridge, device="cpu")
+    obs = ENV.FakeObjectNavEnv(ENV.open_room_plan(seed=0), ENV.EnvConfig(width=W, height=H)).reset()
+    P.reset_spans()
+    P.reset_counters()
+    with P.tracing():
+        perception.batch(np.stack([obs["rgb"]] * LANES), "toilet")
+    recs = P.spans()
+    by_id = {r.id: r for r in recs}
+    passes = P.counters()["veto.passes"]
+    assert passes >= 1
+    (veto,) = [r for r in recs if r.name == "vlfm.veto"]
+    assert by_id[veto.parent].name == "vlfm.perceive"
+    for name in ("vlfm.veto.prefix", "vlfm.t5.encode", "vlfm.t5.decode"):
+        mine = [r for r in recs if r.name == name]
+        assert len(mine) == passes and all(r.parent == veto.id for r in mine), name
+    assert [r.attrs["steps"] for r in recs if r.name == "vlfm.t5.decode"] == [4] * passes
 
 
 def test_k1_spans_name_the_entry_and_the_shapes():

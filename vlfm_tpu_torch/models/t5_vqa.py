@@ -37,6 +37,7 @@ from vlfm_tpu_torch.models.hf_convert import kernel, leaf
 from vlfm_tpu_torch.models.layers import Dense, Norm, merge_heads, promoted, split_heads
 from vlfm_tpu_torch.models.params import init_random_, load_jax_params_
 from vlfm_tpu_torch.models.precision import exact_f32
+from vlfm_tpu_torch.utils.profiling import count, span
 
 
 @dataclass(frozen=True)
@@ -275,14 +276,23 @@ class T5VQA:
         """(B, L) ids and mask [+ (B, P, d_model) visual prefix] -> (B,
         max_new_tokens) greedy tokens. As in JAX, each step runs the whole
         (max_new_tokens + 1)-token decoder and reads the logits at its
-        position (a causal decoder: later tokens do not reach them)."""
+        position (a causal decoder: later tokens do not reach them).
+
+        Spans ``vlfm.t5.encode`` (the encoder) and ``vlfm.t5.decode`` (the
+        greedy loop); counters ``t5.encoder_tokens`` (rows times the
+        encoder's length, prefix included) and ``t5.decode_steps``
+        (``max_new_tokens``), per call."""
         with exact_f32(input_ids.device):
-            enc, m = self.module.encode(input_ids, attention_mask, prefix)
+            with span("vlfm.t5.encode", ids=input_ids):
+                enc, m = self.module.encode(input_ids, attention_mask, prefix)
+            count("t5.encoder_tokens", enc.shape[0] * enc.shape[1])
             tokens = torch.zeros((input_ids.shape[0], max_new_tokens + 1), dtype=torch.int64,
                                  device=input_ids.device)
-            for i in range(max_new_tokens):
-                logits = self.module.decode_logits(tokens, enc, m)
-                tokens[:, i + 1] = torch.argmax(logits[:, i], dim=-1)
+            with span("vlfm.t5.decode", steps=max_new_tokens):
+                for i in range(max_new_tokens):
+                    logits = self.module.decode_logits(tokens, enc, m)
+                    tokens[:, i + 1] = torch.argmax(logits[:, i], dim=-1)
+            count("t5.decode_steps", max_new_tokens)
         return tokens[:, 1:]
 
     @staticmethod

@@ -38,7 +38,7 @@ from vlfm_tpu_torch.models.sam import SAM
 from vlfm_tpu_torch.models.t5_vqa import T5VQA
 from vlfm_tpu_torch.ops.morphology import dilate, erode
 from vlfm_tpu_torch.ops.resize import resize_bilinear, resize_bilinear_hw
-from vlfm_tpu_torch.utils.profiling import span
+from vlfm_tpu_torch.utils.profiling import count, span
 
 RED = (255, 0, 0)
 
@@ -61,6 +61,13 @@ class VQAVeto:
     as ``jax.lax.dynamic_slice_in_dim`` clamps it. The pass count needs one
     host read of the valid count per call. None, or a capacity of B*K or
     more, asks every slot in one batch.
+
+    Each pass's visual prefix is a ``vlfm.veto.prefix`` span, and T5's
+    ``generate`` adds its own (``vlfm.t5.encode``, ``vlfm.t5.decode``).
+    Counters per call: ``veto.passes`` and ``veto.slots`` (the slots asked,
+    ``passes * capacity`` with the clamped last window's, or B*K in one
+    batch); ``veto.valid_slots``, the valid count the gated form reads
+    (the one-batch form reads nothing and does not count it).
     """
 
     vqa: T5VQA
@@ -100,7 +107,10 @@ class VQAVeto:
         return torch.where(ring[..., None], red, rgb[:, None]).reshape(-1, *rgb.shape[1:])
 
     def _ask(self, images: torch.Tensor, ids: torch.Tensor, qmask: torch.Tensor) -> torch.Tensor:
-        prefix = None if self.image_prefix is None else self.image_prefix(images)
+        prefix = None
+        if self.image_prefix is not None:
+            with span("vlfm.veto.prefix", images=images):
+                prefix = self.image_prefix(images)
         gen = self.vqa.generate(ids, qmask, max_new_tokens=self.max_answer_tokens, prefix=prefix)
         return self.vqa.answer_starts_with_yes(gen, self.yes_token_id)
 
@@ -129,13 +139,19 @@ class VQAVeto:
         flat = self.annotate(rgb, masks)
         cap = self.slot_capacity
         if cap is None or cap >= b * k:
+            count("veto.passes")
+            count("veto.slots", b * k)
             return valid & self._ask(flat, ids, qmask).reshape(b, k)
         flatv = valid.reshape(b * k)
         order = torch.argsort((~flatv).to(torch.uint8), stable=True)  # valid slots first
         with span("vlfm.wait.veto"):
             n_valid = int(flatv.sum())
+        passes = -(-n_valid // cap)
+        count("veto.valid_slots", n_valid)
+        count("veto.passes", passes)
+        count("veto.slots", passes * cap)
         yes = torch.zeros(b * k, dtype=torch.bool, device=valid.device)
-        for p in range(-(-n_valid // cap)):
+        for p in range(passes):
             start = min(p * cap, b * k - cap)
             sel = order[start:start + cap]
             yes[sel] = self._ask(flat[sel], ids[sel], qmask[sel])
